@@ -1,0 +1,523 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``videotofaces_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (the script runs them all, then exits 1 if
+any failed, printing no result line):
+
+1. the card: name, count, and ``nvidia-smi`` name + power limit;
+2. build every CUDA kernel of the path from ``videotofaces_tpu_torch/csrc``
+   (one ``nvcc`` per source, in parallel);
+3. each kernel at main-path shapes (batch 2, 1080p, min face 5), held
+   against its plain PyTorch version on the same inputs and timed with CUDA
+   events: ``pnet_level`` over the whole 16-level pyramid in bf16 plus two
+   levels in f32, ``pool_crops`` at the stage-2 (2048 x 24 px) and stage-3
+   (512 x 48 px) slot tables;
+4. the main path through the user entry points, with every launch count set
+   to 0 just before and read just after:
+   a. ``MtcnnDetector(params=seeded, bf16=True)``, precision "default", on
+      two seeded 1080p frames (ms per batch, counts, device busy share);
+   b. the same cascade in f32 / "highest", kernel path against plain path
+      on the card: equal valid counts, boxes and scores within tolerance;
+   c. ``video_to_faces(mode="detection", style="live", det_model="mtcnn")``
+      on a synthetic 1080p video (frames/s, stage timings).
+
+Its last two lines are a JSON object listing every kernel with its launches,
+error and times, and ``{"ok": true, "device": {...}}``. It imports nothing of
+JAX or of the JAX package, and it fails without a CUDA device or without the
+port's package beside it.
+"""
+
+import contextlib
+import json
+import os
+import os.path as osp
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+PEAK_OPS = {"bfloat16": 989e12,   # dense bf16 tensor-core rate
+            "float32": 67e12}     # float32 on the CUDA cores (also int32 adds)
+# pnet_level against its plain version: float32, accumulation order only;
+# bfloat16, a one-ulp difference in one bf16-rounded map compounds through
+# the four maps (the JAX package's bounds between two blockings of its own
+# kernel, tests/test_models_mtcnn.py:699-706). prob lies in [0, 1]; reg is
+# held to the same rtol and to atol times max|reg| of the level, since a
+# flipped ulp upstream moves reg by a share of its terms, not of its value.
+TOLS = {"float32": dict(rtol=1e-4, atol=1e-6),
+        "bfloat16": dict(rtol=0.05, atol=5e-3)}
+B, H, W, MINSIZE = 2, 1080, 1920, 5
+
+failures = []
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name):
+    log("== " + name)
+    t0 = time.perf_counter()
+    try:
+        yield
+    except Exception as e:  # every phase runs; the exit code reports failures
+        import traceback
+
+        traceback.print_exc()
+        failures.append("%s: %s: %s" % (name, type(e).__name__, e))
+        log("FAILED: %s" % name)
+    log("   (%.1f s)" % (time.perf_counter() - t0))
+
+
+def cuda_ms(fn, iters, warmup=1):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(iters):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / iters
+
+
+def jax_shapes():
+    """{"net/a/b/kernel": shape} of the JAX package's MTCNN parameter tree
+    (the layout ``MtcnnDetector(params=...)`` takes), read off the port's
+    modules: OIHW -> HWIO, [out, in] -> [in, out]."""
+    from videotofaces_tpu_torch.models.mtcnn import MTCNN
+
+    model, out = MTCNN(), {}
+    for net in ("pnet", "rnet", "onet"):
+        for key, val in getattr(model, net).state_dict().items():
+            parts, shape = [net] + key.split("."), tuple(val.shape)
+            if parts[-1] == "weight":
+                parts[-1] = "kernel"
+                shape = shape[2:] + shape[1::-1] if len(shape) == 4 else shape[::-1]
+            out["/".join(parts)] = shape
+    return out
+
+
+def seeded_params(seed, cls_shift, reg_scale=1e-4):
+    """MTCNN parameter tree (the JAX package's layout), numpy-seeded: weights
+    N(0, 0.25), PReLU slopes |N| * 0.5 + 0.1, cls biases N(-0.4, 0.5) with
+    ``cls_shift`` on the face logit (so that stages 2-3 see candidates),
+    reg/landmark heads scaled by ``reg_scale`` (so that the cascade's boxes
+    stay face-like; the kernel checks use 1, so that ``reg`` is O(1))."""
+    from videotofaces_tpu_torch.utils.weights import unflatten
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, shape in sorted(jax_shapes().items()):
+        x = rng.normal(0.0, 0.25, shape).astype(np.float32)
+        if k.endswith("alpha"):
+            x = np.abs(x) * 0.5 + 0.1
+        if "cls" in k and k.endswith("bias"):
+            x = rng.normal(-0.4, 0.5, shape).astype(np.float32)
+            x[1] += cls_shift
+        if "reg" in k or "lmk" in k:
+            x = x * reg_scale
+        out[k] = x
+    return unflatten(out)
+
+
+def seeded_frames(seed, b=B, h=H, w=W):
+    """Smooth random uint8 BGR frames: a low-resolution noise field upsampled
+    with cv2, plus fine noise."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(b):
+        low = rng.integers(0, 256, (h // 24, w // 24, 3)).astype(np.uint8)
+        f = cv2.resize(low, (w, h), interpolation=cv2.INTER_CUBIC).astype(np.int16)
+        f += rng.integers(-12, 13, f.shape, dtype=np.int16)
+        out.append(np.clip(f, 0, 255).astype(np.uint8))
+    return np.stack(out)
+
+
+def pnet_errors(got, want):
+    """max |kernel - plain| of reg and of prob, and max|reg| of the plain."""
+    (reg, prob), (preg, pprob) = got, want
+    return {"reg": (reg.float() - preg.float()).abs().max().item(),
+            "prob": (prob - pprob).abs().max().item(),
+            "reg_max": preg.float().abs().max().item()}
+
+
+def check_pnet(got, want, dtype, err):
+    import torch
+
+    tol = TOLS[dtype]
+    torch.testing.assert_close(got[1], want[1], **tol)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol["rtol"],
+                               atol=tol["atol"] * max(1.0, err["reg_max"]))
+
+
+def pnet_work(level_hw, b=B, h=H, w=W, dtype="bfloat16"):
+    """(bytes, operations) the level's pool + PNet needs: frames read once,
+    reg / prob written once; pool adds plus 2 ops per multiply-add."""
+    from videotofaces_tpu_torch.ops.resize import pool_bounds_1d
+
+    sh, sw = level_hw
+    ch, cw = sh - 2, sw - 2
+    qh, qw = (ch + 1) // 2, (cw + 1) // 2
+    ph, pw = qh - 4, qw - 4
+    ys, ye = pool_bounds_1d(h, sh)
+    xs, xe = pool_bounds_1d(w, sw)
+    pool = int((ye - ys).sum()) * int((xe - xs).sum()) * 3
+    macs = ch * cw * 10 * 27 + (qh - 2) * (qw - 2) * 16 * 90 + ph * pw * (32 * 144 + 6 * 32)
+    esize = 2 if dtype == "bfloat16" else 4
+    nbytes = b * h * w * 3 + 6632 * 4 + b * ph * pw * (4 * esize + 4)
+    return nbytes, b * (pool + 2 * macs)
+
+
+def bound_ms(nbytes, ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def crop_slots(rng, n, b=B, h=H, w=W):
+    """A seeded slot table: a mix of small (8-64 px), ~300 px and > 512 px
+    windows, with about a quarter of the slots dead (ok = 0)."""
+    kind = rng.choice(3, n, p=[0.7, 0.2, 0.1])
+    lo = np.array([8, 260, 520])[kind]
+    hi = np.array([64, 340, 1000])[kind]
+    wh = np.minimum(rng.integers(lo, hi + 1), h)
+    ww = np.minimum((wh * rng.uniform(0.8, 1.25, n)).astype(np.int64), w)
+    ww = np.maximum(ww, 1)
+    y0 = rng.integers(0, h - wh + 1)
+    x0 = rng.integers(0, w - ww + 1)
+    ok = (rng.random(n) >= 0.25).astype(np.int64)
+    return np.stack([rng.integers(0, b, n), y0, x0, wh, ww, ok], axis=1).astype(np.int32)
+
+
+def crops_work(slots, out_size, b=B, h=H, w=W):
+    """(bytes, operations): the union of the live windows' frame bytes read
+    once, the crops written once, the slot table read once; one add per
+    window byte plus a division and normalization per output."""
+    live = slots[:, 5] != 0
+    cover = np.zeros((b, h, w), bool)
+    for img, y0, x0, wh, ww, _ in slots[live]:
+        cover[img, y0:y0 + wh, x0:x0 + ww] = True
+    adds = int((slots[live, 3].astype(np.int64) * slots[live, 4]).sum()) * 3
+    nbytes = int(cover.sum()) * 3 + slots.shape[0] * (out_size * out_size * 3 * 4 + 24)
+    return nbytes, adds + slots.shape[0] * out_size * out_size * 3 * 3
+
+
+def card_line():
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=30)
+        return r.stdout.strip().splitlines()[0] if r.stdout.strip() else "nvidia-smi: no output"
+    except (OSError, subprocess.SubprocessError) as e:
+        return "nvidia-smi unavailable: %s" % e
+
+
+@contextlib.contextmanager
+def plain_engines():
+    """Route the cascade's two kernel calls to their plain versions for
+    tensors on the card (the comparison path of phase 4b)."""
+    from videotofaces_tpu_torch.models import mtcnn as M
+    from videotofaces_tpu_torch.ops import crops_kernel as CK
+    from videotofaces_tpu_torch.ops import pnet_kernel as PK
+
+    saved = (M.pnet_level, M.pool_crops)
+    M.pnet_level, M.pool_crops = PK.pnet_level_plain, CK.pool_crops_plain
+    try:
+        yield
+    finally:
+        M.pnet_level, M.pool_crops = saved
+
+
+def profile_batch(det, batch):
+    """Where the time goes: one more batch under torch.profiler — device
+    kernel time by name, and the device's busy and idle share of the
+    batch's wall time. A measurement aid: a profiler that yields nothing
+    is reported, not failed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            det(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        self_dev = lambda e: (getattr(e, "self_device_time_total", None)
+                              or getattr(e, "self_cuda_time_total", 0))
+        evs = [e for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", "")) and self_dev(e) > 0]
+    except Exception as e:  # noqa: BLE001 - see docstring
+        log("   profiler unavailable: %s: %s" % (type(e).__name__, e))
+        return
+    dev_ms = sum(self_dev(e) for e in evs) / 1e3
+    log("   profiled batch: wall %.2f ms, device kernels %.2f ms, busy %.1f%%, "
+        "idle %.1f%%" % (wall, dev_ms, 100 * dev_ms / wall, 100 - 100 * dev_ms / wall))
+    for e in sorted(evs, key=lambda e: -self_dev(e))[:15]:
+        log("     %8.3f ms  x%-5d %s" % (self_dev(e) / 1e3, e.count, e.key[:100]))
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    root = osp.dirname(osp.abspath(__file__))
+    if not osp.isdir(osp.join(root, "videotofaces_tpu_torch")):
+        print("chip_smoke: the videotofaces_tpu_torch package is not beside this "
+              "script; run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.models import mtcnn as M
+    from videotofaces_tpu_torch.ops import _cuda
+    from videotofaces_tpu_torch.ops import crops_kernel as CK
+    from videotofaces_tpu_torch.ops import pnet_kernel as PK
+
+    dev = torch.device("cuda")
+    kinds = torch.cuda.get_device_name(0)
+    card = card_line()
+    kernels = {}
+
+    with phase("1. card"):
+        log("torch %s, CUDA %s, python %s" % (torch.__version__, torch.version.cuda,
+                                              sys.version.split()[0]))
+        log("device: %s, count %d" % (kinds, torch.cuda.device_count()))
+        log("nvidia-smi: " + card)
+
+    with phase("2. build"):
+        secs = _cuda.build_all()
+        log("built %s in %.1f s (wall, parallel nvcc)" % (", ".join(_cuda.SOURCES), secs))
+        for src, info in _cuda.build_log.items():
+            for line in info["ptxas"].splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log("   %s: %s" % (src, line.strip()))
+
+    frames_np = seeded_frames(7)
+    frames = torch.from_numpy(frames_np).to(dev)
+    scales, sizes = M.scale_pyramid(H, W, MINSIZE)
+    log("pyramid: %d levels, largest %s, smallest %s" % (len(sizes), sizes[0], sizes[-1]))
+    # kernel checks: heads not scaled, so reg is O(1) and a wrong reg shows
+    kmodel = M.MTCNN.from_jax(seeded_params(0, 2.0, reg_scale=1.0)).to(dev).eval()
+
+    with phase("3a. pnet_level kernel vs plain (bf16 pyramid, f32 levels)"):
+        ms = plain_ms = bnd = 0.0
+        err = {"reg": 0.0, "prob": 0.0}
+        reg_max = 0.0
+        nbytes_all = ops_all = 0
+        checks = []
+        w16 = PK.pack_weights(kmodel.pnet, torch.bfloat16).to(dev)
+        for level_hw in sizes:
+            got = PK.pnet_level(frames, level_hw, w16, torch.bfloat16)
+            want = PK.pnet_level_plain(frames, level_hw, w16, torch.bfloat16)
+            e = pnet_errors(got, want)
+            checks.append((got, want, e))
+            err = {k: max(err[k], e[k]) for k in err}
+            reg_max = max(reg_max, e["reg_max"])
+            k_ms = cuda_ms(lambda: PK.pnet_level(frames, level_hw, w16, torch.bfloat16), 5)
+            p_ms = cuda_ms(lambda: PK.pnet_level_plain(frames, level_hw, w16,
+                                                       torch.bfloat16), 2)
+            nb, ops = pnet_work(level_hw)
+            bl, by = bound_ms(nb, ops, "bfloat16")
+            ms, plain_ms, bnd = ms + k_ms, plain_ms + p_ms, bnd + bl
+            nbytes_all, ops_all = nbytes_all + nb, ops_all + ops
+            log("   bf16 level %-12s kernel %8.3f ms  plain %8.3f ms  bound %.4f ms (%s)  "
+                "max|err| reg %.3g (max|reg| %.3g) prob %.3g"
+                % (level_hw, k_ms, p_ms, bl, by, e["reg"], e["reg_max"], e["prob"]))
+        for got, want, e in checks:
+            check_pnet(got, want, "bfloat16", e)
+        del checks
+        _, by_all = bound_ms(nbytes_all, ops_all, "bfloat16")
+        log("   bf16 pyramid: kernel %.3f ms, plain %.3f ms, bound %.4f ms per batch; "
+            "%.1f GFLOP, %.3f GB; max|reg| %.3g" % (ms, plain_ms, bnd, ops_all / 1e9,
+                                                   nbytes_all / 1e9, reg_max))
+        assert reg_max > 100 * TOLS["bfloat16"]["atol"], "reg too small to check"
+        kernels["pnet_level"] = dict(
+            name="pnet_level", route="cuda",
+            source="videotofaces_tpu_torch/csrc/pnet_level.cu",
+            replaces="videotofaces_tpu/ops/pallas_pnet.py:540 (pnet_level_fused); "
+                     "videotofaces_tpu/ops/pallas_pnet.py:457 (pnet_level)",
+            launches=None, max_abs_err=max(err.values()), ms=ms, plain_ms=plain_ms,
+            bound_ms=bnd, bound_by=by_all, library_ms=None, max_abs_err_by_output=err,
+            tol={"prob": TOLS["bfloat16"], "reg": dict(rtol=TOLS["bfloat16"]["rtol"],
+                                                       atol="%g x max|reg|"
+                                                       % TOLS["bfloat16"]["atol"])},
+            shape="B=2 1080p min face 5, %d levels, bf16" % len(sizes))
+        w32 = PK.pack_weights(kmodel.pnet, torch.float32).to(dev)
+        for level_hw in [(2593, 4609), (924, 1643)]:
+            got = PK.pnet_level(frames, level_hw, w32, torch.float32)
+            want = PK.pnet_level_plain(frames, level_hw, w32, torch.float32)
+            e = pnet_errors(got, want)
+            k_ms = cuda_ms(lambda: PK.pnet_level(frames, level_hw, w32, torch.float32), 3)
+            p_ms = cuda_ms(lambda: PK.pnet_level_plain(frames, level_hw, w32,
+                                                       torch.float32), 2)
+            bl, by = bound_ms(*pnet_work(level_hw, dtype="float32"), "float32")
+            log("   f32  level %-12s kernel %8.3f ms  plain %8.3f ms  bound %.4f ms (%s)  "
+                "max|err| reg %.3g (max|reg| %.3g) prob %.3g (tol %s)"
+                % (level_hw, k_ms, p_ms, bl, by, e["reg"], e["reg_max"], e["prob"],
+                   TOLS["float32"]))
+            check_pnet(got, want, "float32", e)
+
+    with phase("3b. pool_crops kernel vs plain (stage-2 and stage-3 slot tables)"):
+        rng = np.random.default_rng(11)
+        ms = plain_ms = bnd = 0.0
+        err = 0.0
+        nbytes_all = ops_all = 0
+        for n, size in [(B * 1024, 24), (B * 256, 48)]:
+            slots_np = crop_slots(rng, n)
+            slots = torch.from_numpy(slots_np).to(dev)
+            got = CK.pool_crops(frames, slots, size)
+            want = CK.pool_crops_plain(frames, slots, size)
+            torch.cuda.synchronize()
+            # exact: int32 window sums and one IEEE division on both sides
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+            e = (got - want).abs().max().item()
+            err = max(err, e)
+            k_ms = cuda_ms(lambda: CK.pool_crops(frames, slots, size), 10)
+            p_ms = cuda_ms(lambda: CK.pool_crops_plain(frames, slots, size), 3)
+            nb, ops = crops_work(slots_np, size)
+            bl, by = bound_ms(nb, ops, "float32")
+            ms, plain_ms, bnd = ms + k_ms, plain_ms + p_ms, bnd + bl
+            nbytes_all, ops_all = nbytes_all + nb, ops_all + ops
+            log("   N=%d out %d (%d live): kernel %.3f ms  plain %.3f ms  bound %.4f ms "
+                "(%s)  max|err| %.3g" % (n, size, int(slots_np[:, 5].sum()), k_ms, p_ms,
+                                         bl, by, e))
+        kernels["pool_crops"] = dict(
+            name="pool_crops", route="cuda",
+            source="videotofaces_tpu_torch/csrc/pool_crops.cu",
+            replaces="videotofaces_tpu/ops/pallas_crops.py:129 (adaptive_pool_crops)",
+            launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+            bound_by=bound_ms(nbytes_all, ops_all, "float32")[1], library_ms=None,
+            tol=dict(rtol=0, atol=0),
+            shape="N=2048 out 24 + N=512 out 48 on B=2 1080p")
+
+    det = None
+    with phase("4a. main path: MtcnnDetector(bf16=True), precision default"):
+        from videotofaces_tpu_torch.models.wrappers import MtcnnDetector
+
+        config.set_precision("default")
+        det = MtcnnDetector(params=seeded_params(0, 2.0), bf16=True)
+        assert det.device.type == "cuda"
+        batch = list(frames_np)
+        for _ in range(2):
+            det(batch)                                   # warm-up
+        torch.cuda.synchronize()
+        PK.pnet_level.launches = 0
+        CK.pool_crops.launches = 0
+        iters, times = 5, []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            handle = det.submit(batch)
+            res = det.collect(handle)
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {"pnet_level": PK.pnet_level.launches,
+                    "pool_crops": CK.pool_crops.launches}
+        log("   cascade ms per batch of %d: mean %.2f, min %.2f, all %s"
+            % (B, np.mean(times), np.min(times), ["%.2f" % t for t in times]))
+        log("   launches over %d batches: %s" % (iters, launches))
+        for name, n in launches.items():
+            assert n > 0, "%s was not launched on the main path" % name
+            kernels[name]["launches"] = n
+        assert launches["pnet_level"] == iters * len(sizes)
+        assert launches["pool_crops"] == iters * 2
+        (out, _), _ = handle
+        counts = {k: v.tolist() for k, v in out[4].items()}
+        log("   counts: %s" % counts)
+        for k in ("stage1", "stage1_scale_max", "stage1_select_overflow", "cross_in",
+                  "stage2", "stage2_crop_dropped", "stage3", "stage3_crop_dropped"):
+            assert k in counts, k
+        assert counts["stage2"][0] > 0 and counts["stage3"][0] > 0, "stages 2-3 saw no candidates"
+        assert len(res) == B
+        for r in res:
+            assert r.ndim == 2 and r.shape[1] == 5 and np.isfinite(r).all()
+        log("   detections per frame: %s" % [len(r) for r in res])
+        profile_batch(det, batch)
+
+
+    with phase("4b. cascade f32 'highest': kernel path vs plain path on the card"):
+        m32 = M.MTCNN.from_jax(seeded_params(0, 2.0)).to(dev).eval()
+        with config.precision_scope("highest"), torch.no_grad():
+            n0 = PK.pnet_level.launches, CK.pool_crops.launches
+            got = M.full_forward(m32, frames, minsize=MINSIZE)
+            assert PK.pnet_level.launches > n0[0] and CK.pool_crops.launches > n0[1]
+            with plain_engines():
+                n1 = PK.pnet_level.launches, CK.pool_crops.launches
+                want = M.full_forward(m32, frames, minsize=MINSIZE)
+                assert (PK.pnet_level.launches, CK.pool_crops.launches) == n1
+        gv, wv = got[3].cpu(), want[3].cpu()
+        log("   valid per image: kernel path %s, plain path %s" % (gv.sum(1).tolist(),
+                                                                wv.sum(1).tolist()))
+        log("   counts kernel %s" % {k: v.tolist() for k, v in got[4].items()})
+        log("   counts plain  %s" % {k: v.tolist() for k, v in want[4].items()})
+        assert torch.equal(gv.sum(1), wv.sum(1)), "valid counts differ"
+        assert gv.sum() > 0, "no final detections"
+        for i in range(B):
+            gb, wb = got[0][i].cpu()[gv[i]], want[0][i].cpu()[wv[i]]
+            gs, ws = got[1][i].cpu()[gv[i]], want[1][i].cpu()[wv[i]]
+            log("   image %d: max|box diff| %.3g, max|score diff| %.3g"
+                % (i, (gb - wb).abs().max().item(), (gs - ws).abs().max().item()))
+            torch.testing.assert_close(gs, ws, rtol=1e-4, atol=1e-5)
+            torch.testing.assert_close(gb, wb, rtol=1e-3, atol=2e-2)
+
+    with phase("4c. video_to_faces(mode='detection', style='live', det_model='mtcnn')"):
+        import cv2
+
+        from videotofaces_tpu_torch import video_to_faces
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = osp.join(tmp, "synthetic_1080p.mp4")
+            fps = 4.0
+            vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (W, H))
+            for f in seeded_frames(13, b=8):
+                vw.write(f)
+            vw.release()
+            out_dir = osp.join(tmp, "out")
+            os.makedirs(out_dir)
+            from videotofaces_tpu_torch.hostio import frame_schedule, open_reader
+
+            reader = open_reader(path, "opencv")
+            nframes = len(frame_schedule(reader.length, reader.fps, 1.0 / fps, None)[0])
+            reader.close()
+            PK.pnet_level.launches = 0
+            CK.pool_crops.launches = 0
+            t0 = time.perf_counter()
+            video_to_faces(input_path=path, out_dir=out_dir, mode="detection",
+                           style="live", det_model="mtcnn", video_step=1.0 / fps,
+                           det_batch_size=4)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log("   %d sampled frames in %.2f s: %.2f frames/s (model load and "
+                "first-batch warm-up included)" % (nframes, wall, nframes / wall))
+            log("   launches: pnet_level %d, pool_crops %d"
+                % (PK.pnet_level.launches, CK.pool_crops.launches))
+            assert PK.pnet_level.launches > 0 and CK.pool_crops.launches > 0
+            assert osp.isdir(osp.join(out_dir, "faces"))
+
+    if failures:
+        print("chip_smoke: %d phase(s) failed:\n  %s" % (len(failures),
+                                                        "\n  ".join(failures)),
+              file=sys.stderr)
+        return 1
+    log(card)
+    log(json.dumps({"kernels": list(kernels.values())}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kinds,
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

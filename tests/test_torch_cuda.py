@@ -1,0 +1,162 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here carries the ``cuda`` marker and skips inside the test when
+no CUDA device is present. The file imports neither JAX nor the JAX package,
+so it runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py configures JAX for the JAX package's
+tests.) Tolerances are stated beside each comparison."""
+
+import numpy as np
+import pytest
+import torch
+
+from videotofaces_tpu_torch import config
+from videotofaces_tpu_torch.models import mtcnn as TM
+from videotofaces_tpu_torch.ops import crops_kernel as CK
+from videotofaces_tpu_torch.ops import pnet_kernel as PK
+from videotofaces_tpu_torch.utils.weights import unflatten
+
+# float32: accumulation order only (fma chains in the kernel, cuDNN in the
+# plain version). bfloat16: a one-ulp f32 difference can move a bf16-rounded
+# map by one bf16 ulp, compounding through the four bf16-stored maps — the
+# bounds the JAX package sets between two blockings of its own kernel
+# (tests/test_models_mtcnn.py:699-706).
+TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-6),
+        torch.bfloat16: dict(rtol=0.05, atol=5e-3)}
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _jax_shapes(model):
+    """{"net/a/b/kernel": shape} of the JAX package's MTCNN parameter tree,
+    read off the port's modules (OIHW -> HWIO, [out, in] -> [in, out])."""
+    out = {}
+    for net in ("pnet", "rnet", "onet"):
+        for key, val in getattr(model, net).state_dict().items():
+            parts, shape = [net] + key.split("."), tuple(val.shape)
+            if parts[-1] == "weight":
+                parts[-1] = "kernel"
+                shape = shape[2:] + shape[1::-1] if len(shape) == 4 else shape[::-1]
+            out["/".join(parts)] = shape
+    return out
+
+
+def _seeded_model(seed, cls_shift=2.0, reg_scale=1e-4):
+    """MTCNN with numpy-seeded weights N(0, 0.25) (the recipe of the port's
+    JAX-parity tests): large logits, so stage-1 probabilities spread far
+    apart, and a face-logit shift so that every stage sees candidates."""
+    flat = {}
+    rng = np.random.default_rng(seed)
+    for k, shape in sorted(_jax_shapes(TM.MTCNN()).items()):
+        x = rng.normal(0.0, 0.25, shape).astype(np.float32)
+        if k.endswith("alpha"):
+            x = np.abs(x) * 0.5 + 0.1
+        if "cls" in k and k.endswith("bias"):
+            x = rng.normal(-0.4, 0.5, shape).astype(np.float32)
+            x[1] += cls_shift
+        if "reg" in k or "lmk" in k:
+            x = x * reg_scale
+        flat[k] = x
+    return TM.MTCNN.from_jax(unflatten(flat)).eval()
+
+
+def _frames(b, h, w, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, 256, (b, h, w, 3)).astype(np.uint8)).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pnet_level_kernel_matches_plain(dtype):
+    _need_cuda()
+    frames = _frames(2, 120, 200, 9)
+    w = PK.pack_weights(TM.MTCNN.seeded(0).pnet, dtype).cuda()
+    # upscaled (windows <= 2), downscaled, and the smallest level PNet takes
+    for level_hw in [(289, 481), (85, 141), (15, 27)]:
+        n0 = PK.pnet_level.launches
+        reg, prob = PK.pnet_level(frames, level_hw, w, dtype)
+        torch.cuda.synchronize()
+        assert PK.pnet_level.launches == n0 + 1
+        preg, pprob = PK.pnet_level_plain(frames, level_hw, w, dtype)
+        assert reg.dtype == dtype and prob.dtype == torch.float32
+        torch.testing.assert_close(prob, pprob, **TOLS[dtype])
+        torch.testing.assert_close(reg.float(), preg.float(), **TOLS[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [24, 48])
+def test_pool_crops_kernel_matches_plain_exactly(out):
+    _need_cuda()
+    rng = np.random.default_rng(2)
+    b, h, w = 2, 360, 640
+    frames = _frames(b, h, w, 3)
+    n = 300
+    wh, ww = rng.integers(1, h + 1, n), rng.integers(1, w + 1, n)
+    scal = np.stack([rng.integers(0, b, n), rng.integers(0, h - wh + 1),
+                     rng.integers(0, w - ww + 1), wh, ww,
+                     (rng.random(n) < 0.8).astype(np.int64)], axis=1)
+    scal[:5, 1] = h - 1     # windows running off the bottom edge: dead slots
+    slots = torch.from_numpy(scal.astype(np.int32)).cuda()
+    n0 = CK.pool_crops.launches
+    got = CK.pool_crops(frames, slots, out)
+    torch.cuda.synchronize()
+    assert CK.pool_crops.launches == n0 + 1
+    # exact int32 window sums and one IEEE division on both sides
+    torch.testing.assert_close(got, CK.pool_crops_plain(frames, slots, out),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_pool_crops_empty_table_launches_nothing():
+    """The launch count counts launches: an empty slot table launches no
+    kernel and is not counted."""
+    _need_cuda()
+    frames = _frames(1, 40, 56, 4)
+    n0 = CK.pool_crops.launches
+    got = CK.pool_crops(frames, torch.zeros((0, 6), dtype=torch.int32, device="cuda"), 24)
+    assert got.shape == (0, 24, 24, 3) and CK.pool_crops.launches == n0
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_bad_inputs_on_cuda():
+    """On a CUDA tensor a wrapper launches its kernel or raises; it never
+    falls back to the plain version."""
+    _need_cuda()
+    frames = _frames(1, 40, 56, 4)
+    w = PK.pack_weights(TM.MTCNN.seeded(0).pnet, torch.float32)
+    with pytest.raises(ValueError):
+        PK.pnet_level(frames, (30, 40), w, torch.float32)          # weights on the CPU
+    with pytest.raises(ValueError):
+        PK.pnet_level(frames, (30, 40), w.cuda(), torch.float16)   # unsupported dtype
+    slots = torch.zeros((4, 6), dtype=torch.int64, device="cuda")
+    with pytest.raises(ValueError):
+        CK.pool_crops(frames, slots, 24)                           # int64 slots
+
+
+@pytest.mark.cuda
+def test_cascade_kernel_path_matches_plain_path():
+    """The whole cascade in float32 / "highest": frames on the card (both
+    kernels) against the same frames on the CPU (plain versions)."""
+    _need_cuda()
+    model = _seeded_model(1)
+    frames = _frames(2, 180, 320, 5)
+    caps = TM.Caps(pre1=256, post1=128, cross=512, stage2=256, stage3=64, out=32)
+    n_p, n_c = PK.pnet_level.launches, CK.pool_crops.launches
+    with config.precision_scope("highest"), torch.no_grad():
+        got = TM.full_forward(model.cuda(), frames, minsize=12, caps=caps)
+        want = TM.full_forward(model.cpu(), frames.cpu(), minsize=12, caps=caps)
+    assert PK.pnet_level.launches > n_p and CK.pool_crops.launches == n_c + 2
+    gv, wv = got[3].cpu(), want[3]
+    assert gv.sum() > 0
+    torch.testing.assert_close(gv.sum(1), wv.sum(1), rtol=0, atol=0)
+    for i in range(gv.shape[0]):
+        torch.testing.assert_close(got[1][i].cpu()[gv[i]], want[1][i][wv[i]],
+                                   rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(got[0][i].cpu()[gv[i]], want[0][i][wv[i]],
+                                   rtol=1e-3, atol=2e-2)

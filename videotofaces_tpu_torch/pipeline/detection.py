@@ -1,0 +1,217 @@
+"""Detection pipeline: videos -> cropped face images on disk (counterpart of
+videotofaces_tpu/pipeline/detection.py, single process, one card).
+
+Behavioral contract (reference detection.py:32-162): per file, sample frames
+on the step schedule, batch them through the detector, filter/adjust/square
+the boxes, crop, name as ``[prefix][kk_]%06d_%u.jpg``, optionally resize,
+drop near-duplicates against the previous 5 kept faces, write to
+``out_dir/faces``; after all files, run the all-pairs hash dedup.
+
+Decode is prefetched on a background thread, the detector runs batches on
+the card with results copied back asynchronously (``submit``/``collect``),
+and face writes go through an async writer pool. Stage wall-times go into a
+StageTimer reported after each run; set V2F_PROFILE_DIR to also capture a
+``torch.profiler`` trace.
+"""
+
+import os
+from collections import deque
+
+import numpy as np
+
+from ..hostio import (AsyncImageWriter, ParallelFrameSource,
+                      PrefetchingFrameSource, decode_workers_default,
+                      open_reader)
+from ..hostio.video import frame_schedule
+from ..utils.image import resize_keep_ratio
+from ..utils.pbar import tqdm
+from ..utils.profiling import StageTimer, trace
+from . import boxfilter as BF
+from .dupes import remove_dupes_nearest, remove_dupes_overall
+
+# detectors of later slices, and the ROADMAP.md item that ports each
+_LATER = {"yolo": "queue 1, item 7 (YOLOv3)",
+          "rcnn": "queue 1, item 9 (Faster R-CNN)"}
+
+
+def resolve_det_model(style, det_model):
+    """The detector name ``det_model`` stands for ("default" picks per
+    style); raises for detectors this slice has not ported."""
+    if det_model == "default":
+        det_model = "rcnn" if style == "anime" else "yolo"
+    if det_model in _LATER:
+        raise NotImplementedError(
+            "det_model=%r is not ported to videotofaces_tpu_torch yet "
+            "(ROADMAP.md %s); use det_model='mtcnn'" % (det_model, _LATER[det_model]))
+    if det_model != "mtcnn":
+        raise ValueError("unknown det_model %r (valid: default, yolo, rcnn, mtcnn)"
+                         % (det_model,))
+    return det_model
+
+
+def get_detector_model(style, det_model, device=None, **model_kw):
+    """String-dispatch model factory (reference detection.py:22-29). This
+    slice ports the MTCNN detector; the others raise."""
+    from ..models.wrappers import MtcnnDetector
+
+    resolve_det_model(style, det_model)
+    return MtcnnDetector(device, **model_kw)
+
+
+def detect_faces(files, model, sampling, criteria, layout, hash_thr):
+    """Run detection over every video in ``files``. Returns the saved face
+    image paths. ``sampling``/``criteria``/``layout`` are
+    specs.FrameSampling / specs.BoxCriteria / specs.OutputLayout."""
+    dedup_on = bool(hash_thr) and hash_thr != -1
+    layout.prepare_dirs(dedup_on)
+    if len(files) > 1:
+        print("File count: " + str(len(files)))
+
+    timer = StageTimer()
+    names, hashes = [], []
+    with trace():
+        for k, path in enumerate(files):
+            print("Processing " + path)
+            # multi-file runs get a per-file "01_", "02_", ... name prefix
+            file_layout = layout if len(files) == 1 else \
+                layout.with_prefix(layout.prefix + "%02d_" % (k + 1))
+            n, h = process_video(path, model, sampling, criteria, file_layout,
+                                 hash_thr, timer)
+            names += n
+            hashes += h
+
+        if dedup_on and names:
+            with timer.stage("dedup:all-pairs", items=len(names)):
+                # explicit uint64: np.stack on Python ints straddling 2^63
+                # would promote to float64 and corrupt the low hash bits
+                arr = np.asarray(hashes, dtype=np.uint64)
+                _, names = remove_dupes_overall(arr, names, "hash", hash_thr, layout)
+
+    paths = [layout.face_path(fn) for fn in names]
+    print()
+    print("Saved a total of %u faces to: %s" % (len(paths), layout.faces_dir))
+    print()
+    timer.report()
+    return paths
+
+
+def process_video(path, model, sampling, criteria, layout, hash_thr, timer=None):
+    """One video through the detector. Returns (face filenames, their hashes)."""
+    reader = open_reader(path, sampling.reader)
+    if not reader.is_open():
+        print("ERROR: could not open video: %s" % path)
+        return [], []
+    indices, step = frame_schedule(reader.length, reader.fps, sampling.step,
+                                   sampling.fragment)
+    workers = decode_workers_default()
+    if workers > 1 and len(indices) > criteria.batch_size * workers:
+        # multi-core host: segmented parallel decode (order-preserving)
+        reader.close()
+        source = ParallelFrameSource(path, indices, step, criteria.batch_size,
+                                     sampling.area, sampling.reader, workers)
+    else:
+        source = PrefetchingFrameSource(reader, indices, step, criteria.batch_size,
+                                        sampling.area)
+    try:
+        return process_stream(source, len(indices), model, criteria, layout,
+                              hash_thr, timer)
+    finally:
+        # join the decode thread(s) BEFORE releasing the reader: a worker may
+        # be mid-read, and cv2.VideoCapture is not safe against a concurrent
+        # release; stop() also unblocks a worker stuck on the prefetch queue
+        if source.stop():
+            reader.close()
+
+
+def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=None):
+    """The detector loop over any (indices, frames) batch source, for a
+    model with ``submit``/``collect``. Returns (face filenames, their
+    hashes)."""
+    timer = timer if timer is not None else StageTimer()
+    if getattr(model, "batch_size", False) is None:
+        model.batch_size = criteria.batch_size  # one static batch shape per video
+
+    names, hashes = [], []
+    pbar = tqdm(total=n_frames)
+    # In-flight queue depth: how many submitted batches ride ahead of the
+    # collect point, so their results' copies back to the host overlap later
+    # batches. Host memory held peaks at depth+1 batches of decoded frames.
+    depth = max(1, int(os.environ.get("V2F_PIPELINE_DEPTH", "8")))
+    inflight = deque()  # (handle, frames, indices) awaiting collect
+    with AsyncImageWriter() as writer:
+
+        def finish(inflight):
+            handle, b_frames, b_idx = inflight
+            with timer.stage("detect:collect", items=len(b_idx)):
+                detout = model.collect(handle)
+            with timer.stage("host:postprocess"):
+                batch_names, new_hashes = process_frames_batch(
+                    b_frames, b_idx, detout, criteria, layout, hash_thr,
+                    hashes, writer)
+            names.extend(batch_names)
+            pbar.update(len(b_idx))
+            return new_hashes
+
+        it = iter(source)
+        while True:
+            with timer.stage("decode:wait"):
+                nxt = next(it, None)
+            if nxt is None:
+                break
+            bi, frames = nxt
+            with timer.stage("detect:submit", items=len(bi)):
+                handle = model.submit(frames)
+            inflight.append((handle, frames, bi))
+            if len(inflight) > depth:
+                hashes = finish(inflight.popleft())
+        while inflight:
+            hashes = finish(inflight.popleft())
+    pbar.close()
+    return names, [h for (h, _) in hashes]
+
+
+def process_frames_batch(frames, indices, detout, criteria, layout, hash_thr,
+                         hashes, writer):
+    """Host post-processing for one batch. ``detout`` is the detector output:
+    a list of [n, 5] (x1, y1, x2, y2, score) arrays, one per frame."""
+    img_size = frames[0].shape[:2]
+    boxes_list = [d[:, :4] for d in detout]
+    scores_list = [d[:, 4] for d in detout]
+
+    faces = []
+    for frame, frame_idx, raw_boxes, raw_scores in zip(frames, indices, boxes_list, scores_list):
+        # round to ints and apply the three rejection conditions
+        iboxes = BF.round_out(raw_boxes)
+        scores = np.asarray(raw_scores)
+        c1, c2, c3 = BF.check_conditions(iboxes, scores, img_size, criteria.min_score,
+                                         criteria.min_size, criteria.min_border)
+        rejected = c1 | c2 | c3
+        if layout.save_frames:
+            BF.render_debug_frame(
+                frame, iboxes, scores, rejected,
+                layout.intermediate("frames", layout.prefix + "%06d.jpg" % frame_idx))
+        if layout.save_rejects:
+            BF.save_rejects_and_log(frame, frame_idx, iboxes, scores, c1, c2, c3,
+                                    layout.root, layout.prefix, criteria.min_score,
+                                    criteria.min_size, criteria.min_border)
+        passed = iboxes[~rejected]
+        # scale/square the survivors
+        adjusted = BF.adjust_boxes(passed, img_size, criteria.scale, criteria.square)
+        # crop and name as %06d_%u.jpg (skip crops that fall fully outside
+        # the frame — only possible with degenerate detector outputs)
+        for j, (x1, y1, x2, y2) in enumerate(adjusted):
+            crop = frame[y1:y2, x1:x2]
+            if crop.size == 0:
+                continue
+            faces.append((crop, layout.prefix + "%06d_%u.jpg" % (frame_idx, j)))
+
+    # optional thumbnailing
+    if layout.resize_to:
+        faces = [(resize_keep_ratio(img, layout.resize_to), fn) for (img, fn) in faces]
+    # previous-5 hash dedup
+    if hash_thr and hash_thr != -1:
+        faces, hashes = remove_dupes_nearest(faces, hashes, hash_thr, layout)
+    # async writes
+    for img, fn in faces:
+        writer.write(layout.face_path(fn), img)
+    return [fn for (_, fn) in faces], hashes

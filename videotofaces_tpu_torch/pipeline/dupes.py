@@ -1,0 +1,155 @@
+"""Hash duplicate removal with audit logs (counterpart of
+videotofaces_tpu/pipeline/dupes.py, its hash parts; the embedding dedup
+comes with the grouping slice).
+
+Behavioral contract (reference dupes.py):
+
+1. ``remove_dupes_nearest`` — during detection, each new face's 8x8 average
+   hash is compared to the previous 5 *kept* hashes; hamming distance <= thr
+   marks a duplicate (window [-5:], dupes.py:18-48).
+2. ``remove_dupes_overall(..., "hash")`` — all-pairs hamming over survivors;
+   a face is a duplicate if some EARLIER face is within thr (dupes.py:51-93).
+
+Duplicates are deleted, or moved to intermediate/dupesN with log_dupesN.csv
+when save_dupes is set. Hashes are packed as one uint64 per face; distances
+are integer popcounts, computed by the native C++ library (utils/native.py)
+or its numpy fallback.
+"""
+
+import os
+import os.path as osp
+
+import cv2
+import numpy as np
+
+from .. import config
+from ..utils import native as NV
+
+_WINDOW = 5  # how many kept predecessors each new face is checked against
+
+
+def ahash(img_bgr):
+    """64-bit average hash, packed into one uint64 (bit k = cell k > mean).
+    The gray/resize math uses cv2 for bit-exact parity with the reference
+    (dupes.py:11-15)."""
+    gray = cv2.cvtColor(img_bgr, cv2.COLOR_BGR2GRAY)
+    tiny = cv2.resize(gray, (8, 8))
+    bits = (tiny > tiny.mean()).flatten()
+    return int(NV.pack_bits(bits[None])[0])
+
+
+def ahash_native(img_bgr):
+    """Throughput-mode hash: the C++ fused gray/8x8-area-average kernel
+    (numpy fallback inside), one pixel pass, no cv2 temporaries."""
+    return int(NV.ahash64_batch(np.ascontiguousarray(img_bgr)[None])[0])
+
+
+def hamming(a, b):
+    """Popcount of two packed uint64 hashes."""
+    return int(a ^ b).bit_count()
+
+
+def remove_dupes_nearest(faces, hashes, hash_thr, layout):
+    """Window dedup for one batch. ``faces``: list[(img, filename)];
+    ``hashes``: running list[(packed_hash, filename)] of every face kept so
+    far this video. Returns (kept faces, updated hashes).
+
+    Parity mode (precision "highest"/"high", the default) hashes each crop
+    with cv2, bit-exact with the reference; throughput mode ("default")
+    uses the native fused hash + window kernel (native/v2f_host.cpp),
+    numerically compatible but not bit-identical to cv2's 8x8 resize.
+    """
+    if config.get_precision_name() == "default" and faces:
+        return _remove_dupes_nearest_native(faces, hashes, hash_thr, layout)
+    kept, log = [], []
+    for img, fn in faces:
+        h = ahash(img)
+        if not hashes:
+            hashes.append((h, fn))
+            kept.append((img, fn))
+            continue
+        window = hashes[-_WINDOW:]
+        dists = [hamming(h, prev) for (prev, _) in window]
+        best = int(np.argmin(dists))
+        d, near_fn = dists[best], window[best][1]
+        log.append((fn, near_fn, d, int(d <= hash_thr)))
+        if d > hash_thr:
+            hashes.append((h, fn))
+            kept.append((img, fn))
+        elif layout.save_dupes:
+            # faces arrive already resized by the caller (detection's
+            # process_frames_batch applies resize_to before dedup)
+            cv2.imwrite(layout.intermediate("dupes1", fn), img)
+
+    _write_dupes1_log(log, layout)
+    return kept, hashes
+
+
+def _remove_dupes_nearest_native(faces, hashes, hash_thr, layout):
+    """Throughput-mode window dedup: batch hashing + the C++ window kernel
+    (same keep/drop semantics as the parity loop above)."""
+    new_h = np.asarray([ahash_native(img) for img, _ in faces], np.uint64)
+    seed = [h for h, _ in hashes[-_WINDOW:]]
+    keep, dist, ref = NV.hamming_prev_window(new_h, hash_thr, _WINDOW, seed)
+    names = [fn for _, fn in hashes[-_WINDOW:]] + [fn for _, fn in faces]
+
+    kept, log = [], []
+    for i, (img, fn) in enumerate(faces):
+        if ref[i] >= 0:
+            log.append((fn, names[ref[i]], int(dist[i]), int(not keep[i])))
+        if keep[i]:
+            hashes.append((int(new_h[i]), fn))
+            kept.append((img, fn))
+        elif layout.save_dupes:
+            cv2.imwrite(layout.intermediate("dupes1", fn), img)
+    _write_dupes1_log(log, layout)
+    return kept, hashes
+
+
+def _write_dupes1_log(log, layout):
+    if layout.save_dupes and log:
+        log_fn = layout.intermediate("log_dupes1.csv")
+        fresh = not osp.exists(log_fn)
+        with open(log_fn, "a") as f:
+            if fresh:
+                f.write("file_name,nearest_in_prev_5,hash_diff,marked_as_duplicate\n")
+            for row in log:
+                f.write("%s,%s,%u,%u\n" % row)
+
+
+def remove_dupes_overall(x, filenames, measure_type, threshold, layout):
+    """All-pairs dedup against earlier faces. ``x``: [N] packed uint64
+    hashes; returns (x without duplicates, surviving names)."""
+    if measure_type != "hash":
+        raise NotImplementedError(
+            "embedding dedup (measure_type=%r) comes with the grouping slice "
+            "(ROADMAP.md queue 1, item 6)" % (measure_type,))
+    if len(filenames) == 0:
+        return x, filenames
+
+    mins, inds = NV.hamming_nearest_earlier(np.ascontiguousarray(x, dtype=np.uint64))
+    is_dup = mins <= threshold
+    is_dup[0] = False  # row 0 has no earlier face (sentinel distance 10000)
+
+    dupes = [fn for fn, d in zip(filenames, is_dup) if d]
+    goods = [fn for fn, d in zip(filenames, is_dup) if not d]
+    x = np.asarray(x)[~is_dup]
+
+    if not layout.save_dupes:
+        for fn in dupes:
+            p = layout.face_path(osp.basename(fn))
+            if osp.isfile(p):
+                os.remove(p)
+    else:
+        dup_dir = layout.intermediate("dupes2")
+        os.makedirs(dup_dir, exist_ok=True)
+        for fn in dupes:
+            base = osp.basename(fn)
+            if osp.isfile(layout.face_path(base)):
+                os.replace(layout.face_path(base), osp.join(dup_dir, base))
+        with open(layout.intermediate("log_dupes2.csv"), "w") as f:
+            f.write("file_name,nearest_in_prev,hash_diff,marked_as_duplicate\n")
+            for i in range(1, len(filenames)):
+                f.write("%s,%s,%s,%s\n" % (filenames[i], filenames[inds[i]],
+                                           str(mins[i]), "1" if is_dup[i] else "0"))
+    return x, goods

@@ -1,0 +1,103 @@
+"""Checkpoint loading and the parameter bridge from the JAX layout.
+
+Converted checkpoints live in ``<repo>/weights/*.npz`` as flat "a/b/c" keys in
+the JAX package's layout (HWIO conv kernels, [in, out] dense kernels — see
+tools/convert_weights.py). The port reads the same files and turns the nested
+numpy tree into ``state_dict``s for its ``nn.Module``s with ``mtcnn_from_jax``.
+"""
+
+import os
+import os.path as osp
+
+import numpy as np
+import torch
+
+
+def unflatten(flat):
+    tree = {}
+    for key, val in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return tree
+
+
+def flatten(tree, prefix=""):
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            flat.update(flatten(v, key))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def load_params(path, expected=None):
+    """Load an .npz checkpoint into a nested numpy dict; validate names and
+    shapes against an ``expected`` tree (arrays or shape tuples) if given."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    if expected is not None:
+        exp_flat = {k: tuple(np.shape(v)) if not isinstance(v, tuple) else v
+                    for k, v in _flatten_any(expected).items()}
+        missing = sorted(set(exp_flat) - set(flat))
+        extra = sorted(set(flat) - set(exp_flat))
+        if missing or extra:
+            raise ValueError(f"checkpoint mismatch: missing={missing[:5]} extra={extra[:5]}")
+        for k, shape in exp_flat.items():
+            if tuple(flat[k].shape) != shape:
+                raise ValueError(f"shape mismatch at {k}: {flat[k].shape} vs {shape}")
+    return unflatten(flat)
+
+
+def _flatten_any(tree, prefix=""):
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            flat.update(_flatten_any(v, key))
+        else:
+            flat[key] = v
+    return flat
+
+
+def weights_dir():
+    """<repo>/weights — the directory the JAX package reads too."""
+    home = osp.dirname(osp.dirname(osp.dirname(osp.realpath(__file__))))
+    d = osp.join(home, "weights")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def jax_to_state_dict(tree):
+    """One network's JAX-layout param tree -> a torch ``state_dict``.
+
+    Keys "conv1/conv/kernel" become "conv1.conv.weight"; conv kernels go
+    HWIO -> OIHW, dense kernels [in, out] -> [out, in]; biases and PReLU
+    ``alpha`` copy as they are."""
+    sd = {}
+    for key, val in flatten(tree).items():
+        val = np.asarray(val, np.float32)
+        parts = key.split("/")
+        if parts[-1] == "kernel":
+            parts[-1] = "weight"
+            if val.ndim == 4:
+                val = val.transpose(3, 2, 0, 1)
+            elif val.ndim == 2:
+                val = val.T
+            else:
+                raise ValueError(f"unexpected kernel rank at {key}: {val.shape}")
+        sd[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(val))
+    return sd
+
+
+def mtcnn_from_jax(params_np):
+    """The JAX package's MTCNN parameter tree (numpy arrays) -> the port's
+    ``{"pnet", "rnet", "onet"}`` state dicts. The RNet/ONet dense layers
+    consume maps flattened in (w, h, c) order on both sides, so their
+    weights carry over with the plain transpose."""
+    return {net: jax_to_state_dict(params_np[net])
+            for net in ("pnet", "rnet", "onet")}
