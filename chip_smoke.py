@@ -9,19 +9,33 @@ any failed, printing no result line):
 1. the card: name, count, and ``nvidia-smi`` name + power limit;
 2. build every CUDA kernel of the path from ``videotofaces_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel);
-3. each kernel at main-path shapes (batch 2, 1080p, min face 5), held
-   against its plain PyTorch version on the same inputs and timed with CUDA
-   events: ``pnet_level`` over the whole 16-level pyramid in bf16 plus two
-   levels in f32, ``pool_crops`` at the stage-2 (2048 x 24 px) and stage-3
-   (512 x 48 px) slot tables;
-4. the main path through the user entry points, with every launch count set
-   to 0 just before and read just after:
+3. each kernel at main-path shapes, held against its plain PyTorch version
+   on the same inputs and timed with CUDA events: ``pnet_level`` over the
+   whole 16-level pyramid of a batch of 2 1080p frames at min face 5 in
+   bf16 plus two levels in f32, ``pool_crops`` at the stage-2 (2048 x 24 px)
+   and stage-3 (512 x 48 px) slot tables, ``resize_normalize`` (K5) on 128
+   packed crops to 160 px (beside a per-image ``F.interpolate`` loop, the
+   nearest library computation);
+4. the main paths through the user entry points, each with every launch
+   count set to 0 just before it and read just after:
    a. ``MtcnnDetector(params=seeded, bf16=True)``, precision "default", on
       two seeded 1080p frames (ms per batch, counts, device busy share);
    b. the same cascade in f32 / "highest", kernel path against plain path
       on the card: equal valid counts, boxes and scores within tolerance;
    c. ``video_to_faces(mode="detection", style="live", det_model="mtcnn")``
-      on a synthetic 1080p video (frames/s, stage timings).
+      on a synthetic 1080p video (frames/s, stage timings);
+   d. ``FaceNetEncoder(batch_size=128)``, precision "default", on 1,024
+      seeded crops through the host-cv2 path and the ``device_resize=True``
+      path (faces/s of each, their embeddings' difference, K5 launches =
+      batches, device busy share of one batch);
+   e. ``kmeans_fit`` and the three cluster scores on the card for k = 2..9
+      on 4,096 seeded 512-d embeddings, labels equal to a CPU run;
+   f. the full path by stages on a synthetic 1080p video: seeded MTCNN ->
+      ``detect_faces`` -> ``get_encoder_model(..., device_resize=True)`` ->
+      ``encode_faces`` -> embedding dedup -> ``cluster_faces`` (faces
+      survive, group folders exist, all three kernels launched);
+   g. ``video_to_faces(mode="full", style="live", det_model="mtcnn")`` with
+      its defaults.
 
 Its last two lines are a JSON object listing every kernel with its launches,
 error and times, and ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -240,6 +254,127 @@ def plain_engines():
         M.pnet_level, M.pool_crops = saved
 
 
+def encoder_crops(seed, n, px=180):
+    """The JAX package's encoder benchmark crop mix (bench.py:324): uint8
+    noise, heights px-39..px, width px."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 255, (px - (i % 40), px, 3)).astype(np.uint8) for i in range(n)]
+
+
+def facenet_params(seed, calibrate_on=None):
+    """InceptionResnetV1 parameter tree in the JAX package's layout (what
+    ``FaceNetEncoder(params=...)`` takes), numpy-seeded: weights N(0, 0.05),
+    BatchNorm scale 1 + N(0, 0.05), var |N| + 0.5. With ``calibrate_on``
+    (a device), ``head_bn``'s mean and var are set to the head features'
+    statistics over 64 smooth seeded images, so that the random network
+    embeds different crops apart (otherwise all lie within ~0.005 cosine
+    distance and the embedding dedup keeps one face)."""
+    import cv2
+    import torch
+
+    from videotofaces_tpu_torch.models.facenet import InceptionResnetV1, preprocess_uint8
+    from videotofaces_tpu_torch.utils.weights import unflatten
+
+    bn_names = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                "running_var": "var"}
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, val in InceptionResnetV1().state_dict().items():
+        parts, shape = key.split("."), tuple(val.shape)
+        if parts[-1] == "num_batches_tracked":
+            continue
+        if parts[-2] in ("bn", "head_bn"):
+            parts[-1] = bn_names[parts[-1]]
+        elif parts[-1] == "weight":       # OIHW -> HWIO, [out, in] -> [in, out]
+            parts[-1] = "kernel"
+            shape = shape[2:] + shape[1::-1] if len(shape) == 4 else shape[::-1]
+        x = rng.normal(0.0, 0.05, shape).astype(np.float32)
+        if parts[-1] == "var":
+            x = np.abs(x) + 0.5
+        elif parts[-1] == "scale":
+            x = 1.0 + x
+        flat["/".join(parts)] = x
+    tree = unflatten(flat)
+    if calibrate_on is not None:
+        model = InceptionResnetV1.from_jax(tree).to(calibrate_on).eval()
+        crng = np.random.default_rng(seed + 1)
+        imgs = np.stack([cv2.resize(crng.integers(0, 256, (8, 8, 3)).astype(np.uint8),
+                                    (160, 160), interpolation=cv2.INTER_CUBIC)
+                         for _ in range(64)])
+        feats = []
+        hook = model.head.register_forward_hook(lambda m, i, o: feats.append(o))
+        x = preprocess_uint8(torch.from_numpy(imgs)).permute(0, 3, 1, 2).contiguous()
+        with torch.no_grad():
+            model(x.to(calibrate_on))
+        hook.remove()
+        f = feats[0].double().cpu().numpy()
+        tree["head_bn"]["mean"] = f.mean(0).astype(np.float32)
+        tree["head_bn"]["var"] = (f.var(0) + 1e-6).astype(np.float32)
+    return tree
+
+
+def resize_work(sizes_np, out):
+    """(bytes, operations) of K5: each crop's pixels read once, the sizes,
+    the float32 NCHW output written once; per output pixel 16 operations
+    for the two axes' taps and 9 per channel (4 products, 3 sums, the
+    normalization)."""
+    n = sizes_np.shape[0]
+    nbytes = int((sizes_np[:, 0].astype(np.int64) * sizes_np[:, 1]).sum()) * 3 \
+        + n * 8 + n * 3 * out * out * 4
+    return nbytes, n * out * out * (16 + 3 * 9)
+
+
+def library_resize(packed, sizes_np, out, scale, mean):
+    """The nearest library computation of K5: one ``F.interpolate``
+    (bilinear, half-pixel) per image, then BGR -> RGB and normalize."""
+    import torch
+    import torch.nn.functional as F
+
+    res = torch.empty((packed.shape[0], 3, out, out), dtype=torch.float32,
+                      device=packed.device)
+    for k, (h, w) in enumerate(sizes_np.tolist()):
+        img = packed[k, :h, :w].permute(2, 0, 1)[None].float()
+        r = F.interpolate(img, size=(out, out), mode="bilinear", align_corners=False)
+        res[k] = (r[0].flip(0) - mean) * scale
+    return res
+
+
+def unit_blobs(seed, n, d=512, k=8, spread=0.6):
+    """n seeded unit vectors in k well-separated clusters (embedding-like)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 1, (k, d))
+    x = centers[rng.integers(0, k, n)] + rng.normal(0, spread / np.sqrt(d) * 4, (n, d))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def reset_launches():
+    from videotofaces_tpu_torch.ops import crops_kernel as CK
+    from videotofaces_tpu_torch.ops import pnet_kernel as PK
+    from videotofaces_tpu_torch.ops import resize_kernel as RK
+
+    for fn in (PK.pnet_level, CK.pool_crops, RK.resize_normalize):
+        fn.launches = 0
+
+
+def read_launches():
+    from videotofaces_tpu_torch.ops import crops_kernel as CK
+    from videotofaces_tpu_torch.ops import pnet_kernel as PK
+    from videotofaces_tpu_torch.ops import resize_kernel as RK
+
+    return {"pnet_level": PK.pnet_level.launches, "pool_crops": CK.pool_crops.launches,
+            "resize_normalize": RK.resize_normalize.launches}
+
+
+def write_video(path, frames, fps):
+    import cv2
+
+    h, w = frames[0].shape[:2]
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    for f in frames:
+        vw.write(f)
+    vw.release()
+
+
 def profile_batch(det, batch):
     """Where the time goes: one more batch under torch.profiler — device
     kernel time by name, and the device's busy and idle share of the
@@ -405,6 +540,39 @@ def main():
             tol=dict(rtol=0, atol=0),
             shape="N=2048 out 24 + N=512 out 48 on B=2 1080p")
 
+    with phase("3c. resize_normalize kernel vs plain (N=128, out 160, pack 256)"):
+        from videotofaces_tpu_torch.ops import resize_kernel as RK
+
+        n, out, scale, mean = 128, 160, 1 / 128.0, 127.5
+        packed_np, sizes_np = RK.pack_images(encoder_crops(3, n), 256)
+        packed = torch.from_numpy(packed_np).to(dev)
+        hw = torch.from_numpy(sizes_np).to(dev)
+        got = RK.resize_normalize(packed, hw, out, scale, mean)
+        want = RK.resize_normalize_plain(packed, hw, out, scale, mean)
+        lib = library_resize(packed, sizes_np, out, scale, mean)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        lib_err = (lib - got).abs().max().item()
+        # the same tap weights on both sides; sums differ by FMA contraction
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        k_ms = cuda_ms(lambda: RK.resize_normalize(packed, hw, out, scale, mean), 50, 3)
+        p_ms = cuda_ms(lambda: RK.resize_normalize_plain(packed, hw, out, scale, mean), 5)
+        l_ms = cuda_ms(lambda: library_resize(packed, sizes_np, out, scale, mean), 5)
+        nb, ops = resize_work(sizes_np, out)
+        bl, by = bound_ms(nb, ops, "float32")
+        log("   kernel %.4f ms  plain %.3f ms  library (F.interpolate loop) %.3f ms  "
+            "bound %.4f ms (%s; %.1f MB, %.3f GFLOP)  max|kernel-plain| %.3g (tol atol "
+            "1e-5)  max|library-kernel| %.3g (not gated)"
+            % (k_ms, p_ms, l_ms, bl, by, nb / 1e6, ops / 1e9, err, lib_err))
+        kernels["resize_normalize"] = dict(
+            name="resize_normalize", route="cuda",
+            source="videotofaces_tpu_torch/csrc/resize_normalize.cu",
+            replaces="videotofaces_tpu/ops/pallas_resize.py:62 (resize_normalize_chw_u8)",
+            launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bl,
+            bound_by=by, library_ms=l_ms, library_max_abs_diff=lib_err,
+            tol=dict(rtol=0, atol=1e-5),
+            shape="N=128 crops 141-180 x 180 in 256 slots -> 160 px")
+
     det = None
     with phase("4a. main path: MtcnnDetector(bf16=True), precision default"):
         from videotofaces_tpu_torch.models.wrappers import MtcnnDetector
@@ -416,8 +584,7 @@ def main():
         for _ in range(2):
             det(batch)                                   # warm-up
         torch.cuda.synchronize()
-        PK.pnet_level.launches = 0
-        CK.pool_crops.launches = 0
+        reset_launches()
         iters, times = 5, []
         for _ in range(iters):
             t0 = time.perf_counter()
@@ -474,17 +641,12 @@ def main():
             torch.testing.assert_close(gb, wb, rtol=1e-3, atol=2e-2)
 
     with phase("4c. video_to_faces(mode='detection', style='live', det_model='mtcnn')"):
-        import cv2
-
         from videotofaces_tpu_torch import video_to_faces
 
         with tempfile.TemporaryDirectory() as tmp:
             path = osp.join(tmp, "synthetic_1080p.mp4")
             fps = 4.0
-            vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (W, H))
-            for f in seeded_frames(13, b=8):
-                vw.write(f)
-            vw.release()
+            write_video(path, seeded_frames(13, b=8), fps)
             out_dir = osp.join(tmp, "out")
             os.makedirs(out_dir)
             from videotofaces_tpu_torch.hostio import frame_schedule, open_reader
@@ -492,8 +654,7 @@ def main():
             reader = open_reader(path, "opencv")
             nframes = len(frame_schedule(reader.length, reader.fps, 1.0 / fps, None)[0])
             reader.close()
-            PK.pnet_level.launches = 0
-            CK.pool_crops.launches = 0
+            reset_launches()
             t0 = time.perf_counter()
             video_to_faces(input_path=path, out_dir=out_dir, mode="detection",
                            style="live", det_model="mtcnn", video_step=1.0 / fps,
@@ -505,6 +666,134 @@ def main():
             log("   launches: pnet_level %d, pool_crops %d"
                 % (PK.pnet_level.launches, CK.pool_crops.launches))
             assert PK.pnet_level.launches > 0 and CK.pool_crops.launches > 0
+            assert osp.isdir(osp.join(out_dir, "faces"))
+
+    with phase("4d. FaceNetEncoder(batch_size=128), precision default: host cv2 vs "
+               "device_resize (K5), 1,024 crops"):
+        from videotofaces_tpu_torch.models.wrappers import FaceNetEncoder
+        from videotofaces_tpu_torch.ops import resize_kernel as RK
+
+        config.set_precision("default")
+        tree = facenet_params(5)
+        crops = encoder_crops(4, 1024)
+        embs, rates = {}, {}
+        for name, kw in (("host_cv2", {}), ("device_resize", {"device_resize": True})):
+            enc = FaceNetEncoder(params=tree, batch_size=128, **kw)
+            enc(crops[:128])                                   # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            embs[name] = np.concatenate([enc(crops[i:i + 128])
+                                         for i in range(0, len(crops), 128)])
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            rates[name] = len(crops) / wall
+            log("   %-13s %8.1f faces/s (%d crops in %.3f s, host resize/pack, H2D, "
+                "forward, D2H); launches %s" % (name, rates[name], len(crops), wall, launches))
+            if kw:
+                assert launches["resize_normalize"] == len(crops) // 128, launches
+                kernels["resize_normalize"]["launches"] = launches["resize_normalize"]
+                pk, sz = RK.pack_images(crops[:128])
+                x = RK.resize_normalize(torch.from_numpy(pk).to(dev),
+                                        torch.from_numpy(sz).to(dev), 160, 1 / 128.0, 127.5)
+                with torch.inference_mode():
+                    fwd = cuda_ms(lambda: enc.model(x), 10, 2)
+                log("   forward alone, batch 128 staged on the card: %.3f ms (%.1f faces/s)"
+                    % (fwd, 128e3 / fwd))
+                profile_batch(enc, crops[:128])
+            else:
+                assert launches["resize_normalize"] == 0, launches
+        diff = np.abs(embs["host_cv2"] - embs["device_resize"]).max()
+        cos = (embs["host_cv2"] * embs["device_resize"]).sum(1)
+        log("   embeddings host vs device_resize: max|diff| %.4g, min cosine %.6f "
+            "(cv2 fixed-point vs float bilinear, TF32)" % (diff, cos.min()))
+        assert embs["device_resize"].shape == (1024, 512)
+        assert np.isfinite(embs["device_resize"]).all()
+        np.testing.assert_allclose(np.linalg.norm(embs["device_resize"], axis=1), 1, atol=1e-3)
+
+    with phase("4e. kmeans_fit + scores on the card, k=2..9, 4,096 x 512"):
+        from videotofaces_tpu_torch.ops import cluster_scores as CS
+        from videotofaces_tpu_torch.ops.kmeans import kmeans_fit
+
+        x = unit_blobs(6, 4096)
+        with config.precision_scope("highest"):
+            kmeans_fit(x, 2, device=dev)                       # warm-up
+            for k in range(2, 10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                labels, _, inertia = kmeans_fit(x, k, random_state=0, device=dev)
+                t1 = time.perf_counter()
+                sil = CS.silhouette_score(x, labels, k, device=dev)
+                ch = CS.calinski_harabasz_score(x, labels, k, device=dev)
+                db = CS.davies_bouldin_score(x, labels, k, device=dev)
+                t2 = time.perf_counter()
+                cpu_labels = kmeans_fit(x, k, random_state=0, device="cpu")[0]
+                log("   k=%d kmeans %.2f ms, scores %.2f ms (silhouette %.5f, CH %.2f, "
+                    "DB %.4f), inertia %.3f, labels equal to CPU: %s"
+                    % (k, (t1 - t0) * 1e3, (t2 - t1) * 1e3, sil, ch, db, inertia,
+                       np.array_equal(labels, cpu_labels)))
+                np.testing.assert_array_equal(labels, cpu_labels)
+
+    with phase("4f. full path by stages on a synthetic 1080p video: seeded MTCNN, "
+               "FaceNet device_resize, dedup, clustering"):
+        from videotofaces_tpu_torch.pipeline.detection import detect_faces
+        from videotofaces_tpu_torch.pipeline.dupes import remove_dupes_overall
+        from videotofaces_tpu_torch.pipeline.grouping import (cluster_faces, encode_faces,
+                                                              get_encoder_model)
+        from videotofaces_tpu_torch.specs import (BoxCriteria, ClusterSpec, FrameSampling,
+                                                  OutputLayout)
+
+        from videotofaces_tpu_torch.models.wrappers import MtcnnDetector
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = osp.join(tmp, "synthetic_1080p.mp4")
+            write_video(path, seeded_frames(17, b=8), 4.0)
+            layout = OutputLayout(osp.join(tmp, "out"))
+            det = MtcnnDetector(params=seeded_params(0, 2.0))
+            enc = get_encoder_model("live", "facenet_vgg", None, batch_size=128,
+                                    device_resize=True, params=facenet_params(5, dev))
+            reset_launches()
+            t0 = time.perf_counter()
+            paths = detect_faces([path], det, FrameSampling(step=0.25),
+                                 BoxCriteria(batch_size=4, min_size=20, min_border=0),
+                                 layout, 8)
+            t1 = time.perf_counter()
+            feats = encode_faces(paths, enc, 128, None)
+            t2 = time.perf_counter()
+            feats, kept = remove_dupes_overall(feats, paths, "enc", 0.25, layout)
+            t3 = time.perf_counter()
+            cluster_faces(kept, feats, ClusterSpec(list(range(2, 10))), layout.root)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            launches = read_launches()
+            groups = sorted(d for d in os.listdir(layout.faces_dir)
+                            if osp.isdir(osp.join(layout.faces_dir, d)))
+            log("   %d faces detected (%.2f s), encoded (%.2f s), %d survive the "
+                "embedding dedup (%.2f s), clustered into %s (%.2f s); launches %s"
+                % (len(paths), t1 - t0, t2 - t1, len(kept), t3 - t2, groups, t4 - t3,
+                   launches))
+            assert len(kept) > 9, "too few faces survive to try every k"
+            assert len(groups) >= 2 and all(
+                os.listdir(osp.join(layout.faces_dir, g)) for g in groups)
+            for name, count in launches.items():
+                assert count > 0, "%s was not launched on the full path" % name
+
+    with phase("4g. video_to_faces(mode='full', style='live', det_model='mtcnn')"):
+        from videotofaces_tpu_torch import video_to_faces
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = osp.join(tmp, "synthetic_1080p.mp4")
+            write_video(path, seeded_frames(13, b=8), 4.0)
+            out_dir = osp.join(tmp, "out")
+            os.makedirs(out_dir)
+            reset_launches()
+            t0 = time.perf_counter()
+            video_to_faces(input_path=path, out_dir=out_dir, mode="full", style="live",
+                           det_model="mtcnn", video_step=0.25)
+            torch.cuda.synchronize()
+            log("   full mode run in %.2f s; launches %s"
+                % (time.perf_counter() - t0, read_launches()))
+            assert read_launches()["pnet_level"] > 0
             assert osp.isdir(osp.join(out_dir, "faces"))
 
     if failures:

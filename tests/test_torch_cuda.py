@@ -17,6 +17,7 @@ from videotofaces_tpu_torch import config
 from videotofaces_tpu_torch.models import mtcnn as TM
 from videotofaces_tpu_torch.ops import crops_kernel as CK
 from videotofaces_tpu_torch.ops import pnet_kernel as PK
+from videotofaces_tpu_torch.ops import resize_kernel as RK
 from videotofaces_tpu_torch.utils.weights import unflatten
 
 # float32: accumulation order only (fma chains in the kernel, cuDNN in the
@@ -160,3 +161,42 @@ def test_cascade_kernel_path_matches_plain_path():
                                    rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(got[0][i].cpu()[gv[i]], want[0][i][wv[i]],
                                    rtol=1e-3, atol=2e-2)
+
+
+def _packed_crops(seed, shapes, max_size=256):
+    rng = np.random.default_rng(seed)
+    imgs = [rng.integers(0, 256, (h, w, 3)).astype(np.uint8) for h, w in shapes]
+    packed, sizes = RK.pack_images(imgs, max_size)
+    return torch.from_numpy(packed).cuda(), torch.from_numpy(sizes).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [160, 128])
+@pytest.mark.parametrize("swap_rb", [True, False], ids=["bgr2rgb", "noswap"])
+def test_resize_normalize_kernel_matches_plain(out, swap_rb):
+    _need_cuda()
+    packed, sizes = _packed_crops(6, [(1, 1), (1, 57), (33, 1), (64, 64), (97, 211),
+                                      (200, 150), (256, 256), (800, 600), (141, 180)])
+    n0 = RK.resize_normalize.launches
+    got = RK.resize_normalize(packed, sizes, out, 1 / 128.0, 127.5, swap_rb)
+    torch.cuda.synchronize()
+    assert RK.resize_normalize.launches == n0 + 1
+    assert got.shape == (packed.shape[0], 3, out, out)
+    # the same tap weights on both sides; the sums differ by FMA contraction
+    torch.testing.assert_close(
+        got, RK.resize_normalize_plain(packed, sizes, out, 1 / 128.0, 127.5, swap_rb),
+        rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_resize_normalize_empty_batch_launches_nothing():
+    _need_cuda()
+    n0 = RK.resize_normalize.launches
+    got = RK.resize_normalize(torch.zeros((0, 64, 64, 3), dtype=torch.uint8, device="cuda"),
+                              torch.zeros((0, 2), dtype=torch.int32, device="cuda"),
+                              160, 1 / 128.0, 127.5)
+    assert got.shape == (0, 3, 160, 160) and RK.resize_normalize.launches == n0
+    with pytest.raises(ValueError):       # int64 sizes
+        RK.resize_normalize(torch.zeros((1, 64, 64, 3), dtype=torch.uint8, device="cuda"),
+                            torch.ones((1, 2), dtype=torch.int64, device="cuda"), 160,
+                            1 / 128.0, 127.5)

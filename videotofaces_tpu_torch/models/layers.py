@@ -1,7 +1,8 @@
 """Shared building blocks (counterpart of videotofaces_tpu/models/layers.py,
-the parts MTCNN uses). Maps are NCHW. The JAX package's ceil-mode
-``max_pool2d`` is ``F.max_pool2d(..., ceil_mode=True)`` here: the last
-window may run off the edge and takes the max over what is inside."""
+the parts MTCNN and FaceNet use). Maps are NCHW. The JAX package's
+``max_pool2d`` is ``F.max_pool2d`` here (with ``ceil_mode=True`` for MTCNN:
+the last window may run off the edge and takes the max over what is
+inside)."""
 
 import torch
 from torch import nn
@@ -32,3 +33,27 @@ class PConv(nn.Module):
     def forward(self, x):
         return self.prelu(self.conv(x))
 
+
+class ConvUnit(nn.Module):
+    """Conv2d (no bias) + inference BatchNorm [+ residual add] [+ ReLU] — the
+    JAX package's ``ConvUnit`` as the port's models use it.
+
+    BatchNorm is ``nn.BatchNorm2d`` in eval mode, ``(x - mean) /
+    sqrt(var + eps) * scale + bias`` on the running statistics; it is kept
+    apart from the convolution (folding it in would change the rounding).
+    Parameter names follow the JAX tree: ``conv.weight``,
+    ``bn.{weight, bias, running_mean, running_var}``."""
+
+    def __init__(self, cin, cout, k, s=1, p=0, activ=None, bn_eps=1e-5):
+        super().__init__()
+        if activ not in (None, "relu"):
+            raise ValueError(f"unsupported activation {activ!r}")
+        self.conv = nn.Conv2d(cin, cout, k, s, p, bias=False)
+        self.bn = nn.BatchNorm2d(cout, eps=bn_eps)
+        self.activ = activ
+
+    def forward(self, x, add=None):
+        x = self.bn(self.conv(x))
+        if add is not None:
+            x = x + add
+        return torch.relu(x) if self.activ == "relu" else x

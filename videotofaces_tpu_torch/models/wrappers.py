@@ -1,12 +1,13 @@
 """User-facing model wrappers (counterpart of
-videotofaces_tpu/models/wrappers.py; this slice has the MTCNN detector).
+videotofaces_tpu/models/wrappers.py; the port has the MTCNN detector and the
+FaceNet encoder so far).
 
 Weights resolution: converted .npz checkpoints from <repo>/weights, in the
 JAX package's layout (see tools/convert_weights.py), turned into the
-modules' state dicts by ``utils/weights.mtcnn_from_jax``. When a checkpoint
-is absent, the wrapper falls back to seeded random weights (an explicit
-``torch.Generator``) with a loud note — every compute path still runs, only
-the predictions are untrained.
+modules' state dicts by ``utils/weights.{mtcnn,facenet}_from_jax``. When a
+checkpoint is absent, the wrapper falls back to seeded random weights (an
+explicit ``torch.Generator``) with a loud note — every compute path still
+runs, only the predictions are untrained.
 """
 
 import os.path as osp
@@ -133,3 +134,85 @@ class MtcnnDetector:
 
     def __call__(self, frames, return_landmarks=False):
         return self.collect(self.submit(frames), return_landmarks)
+
+
+class _Encoder:
+    """Shared encoder wrapper: resize to the model's square input (the
+    cv2.blobFromImages step), normalize, forward, padded batches.
+    ``__call__(list of BGR crops)`` -> [n, D] float32 numpy embeddings.
+
+    Host path (``device_resize=False``, the default): per-crop
+    ``cv2.resize(..., INTER_LINEAR)``, padding by repeating the last crop,
+    a pinned non-blocking copy of the uint8 batch to the card, then BGR ->
+    RGB and the affine normalization there. ``device_resize=True`` packs the
+    crops on the host (``pack_images``, ``pack_size`` square slots) and
+    resizes them on the card with the K5 kernel (ops/resize_kernel.py);
+    numerics differ from cv2's fixed-point INTER_LINEAR by < 1 LSB.
+    ``device``: None means the CUDA card and raises when there is none."""
+
+    def __init__(self, model, input_size, preprocess, norm_scale, norm_mean,
+                 device=None, batch_size=None, device_resize=False, pack_size=256):
+        self.device = config.resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.input_size = input_size
+        self.preprocess = preprocess
+        self.norm_scale, self.norm_mean = norm_scale, norm_mean
+        self.batch_size = batch_size
+        self.device_resize = device_resize
+        self.pack_size = pack_size
+
+    def _to_device(self, arr):
+        x = torch.from_numpy(arr)
+        if self.device.type == "cuda":
+            x = x.pin_memory().to(self.device, non_blocking=True)
+        return x
+
+    def _packed_input(self, images, bs):
+        from ..ops import resize_kernel as RK
+
+        packed, sizes = RK.pack_images(images, self.pack_size)
+        n = len(images)
+        if n < bs:
+            packed = np.concatenate([packed, np.repeat(packed[-1:], bs - n, axis=0)])
+            sizes = np.concatenate([sizes, np.repeat(sizes[-1:], bs - n, axis=0)])
+        return RK.resize_normalize(self._to_device(packed), self._to_device(sizes),
+                                   self.input_size, self.norm_scale, self.norm_mean,
+                                   swap_rb=True)
+
+    def _host_input(self, images, bs):
+        import cv2
+
+        s = self.input_size
+        blobs = [cv2.resize(img, (s, s), interpolation=cv2.INTER_LINEAR)
+                 for img in images]
+        arr, _ = pad_batch(blobs, bs)
+        u8 = self._to_device(arr)
+        # BGR -> RGB, affine normalize, NHWC -> NCHW
+        return self.preprocess(u8.flip(-1)).permute(0, 3, 1, 2).contiguous()
+
+    def __call__(self, images):
+        images = list(images)
+        n = len(images)
+        bs = self.batch_size or n
+        with torch.inference_mode():
+            x = (self._packed_input if self.device_resize else self._host_input)(images, bs)
+            out = self.model(x)
+        return out[:n].cpu().numpy()
+
+
+class FaceNetEncoder(_Encoder):
+    """Live-action face embedder; parity with FaceNet (facenet.py:157-183).
+    ``params``: the JAX package's InceptionResnetV1 parameter tree (numpy
+    arrays), used instead of a checkpoint."""
+
+    def __init__(self, device=None, casia=False, params=None, **kw):
+        from . import facenet as FN
+
+        src = "casia" if casia else "vgg"
+        print("Initializing FaceNet %s model for live-action face encoding" % src.upper())
+        if params is None:
+            params = _resolve_checkpoint("facenet_" + src)
+        model = (FN.InceptionResnetV1.seeded(0) if params is None
+                 else FN.InceptionResnetV1.from_jax(params))
+        # facenet.py:179 affine: (x - 127.5) / 128
+        super().__init__(model, 160, FN.preprocess_uint8, 1 / 128.0, 127.5, device, **kw)

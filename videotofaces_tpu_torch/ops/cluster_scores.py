@@ -1,0 +1,124 @@
+"""Clustering quality scores as device reductions + rand index on the host
+(counterpart of videotofaces_tpu/ops/cluster_scores.py, single device).
+
+Replaces sklearn.metrics.{silhouette_score, calinski_harabasz_score,
+davies_bouldin_score, rand_score} used for K selection and the grouping eval
+harness (reference grouping.py:104-108, 151-152). The three geometric scores
+reduce to distance matrices and centroid statistics — matmuls and
+reductions on the device (None: the card); inputs are numpy arrays.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import config
+
+_SIL_ROWS = 8192   # rows of the [rows, N] silhouette distance block at a time
+
+
+def _pairwise_euclidean(x):
+    sq = torch.sum(x * x, dim=1)
+    d2 = sq[:, None] - 2.0 * (x @ x.T) + sq[None, :]
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def _silhouette_sum(xr, labr, xf, onehot_f, counts):
+    """Silhouette sum over a block of rows. xr/labr: the block's rows;
+    xf/onehot_f/counts: the full set. The [rows, N] distance block is the
+    only O(N^2) object."""
+    sq_r = torch.sum(xr * xr, dim=1)
+    sq_f = torch.sum(xf * xf, dim=1)
+    d = torch.sqrt(torch.clamp(sq_r[:, None] - 2.0 * (xr @ xf.T) + sq_f[None, :], min=0.0))
+    sums = d @ onehot_f                                          # [rows, K]
+    own_count = counts[labr]
+    own_sum = torch.gather(sums, 1, labr[:, None])[:, 0]
+    a = own_sum / torch.clamp(own_count - 1.0, min=1.0)
+    k = onehot_f.shape[1]
+    inf = torch.full_like(sums, float("inf"))
+    mean_other = sums / torch.clamp(counts, min=1.0)[None, :]
+    mean_other = torch.where(F.one_hot(labr, k).bool(), inf, mean_other)
+    mean_other = torch.where((counts == 0)[None, :], inf, mean_other)
+    b = mean_other.min(dim=1).values
+    sil = (b - a) / torch.clamp(torch.maximum(a, b), min=1e-30)
+    sil = torch.where(own_count == 1, torch.zeros_like(sil), sil)
+    return torch.sum(sil)
+
+
+def _onehot_stats(labels, k):
+    onehot = F.one_hot(labels, k).to(torch.float32)
+    counts = onehot.sum(dim=0)
+    return onehot, counts
+
+
+def _inputs(x, labels, n_clusters, device):
+    device = config.resolve_device(device)
+    labels = np.asarray(labels)
+    k = int(n_clusters if n_clusters is not None else labels.max() + 1)
+    xd = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+    return xd, torch.from_numpy(labels.astype(np.int64)).to(device), k
+
+
+def silhouette_score(x, labels, n_clusters=None, device=None):
+    """Mean silhouette coefficient, euclidean metric. Samples in singleton
+    clusters score 0 (sklearn convention)."""
+    xd, lab, k = _inputs(x, labels, n_clusters, device)
+    onehot, counts = _onehot_stats(lab, k)
+    total = sum(float(_silhouette_sum(xd[i:i + _SIL_ROWS], lab[i:i + _SIL_ROWS],
+                                      xd, onehot, counts))
+                for i in range(0, xd.shape[0], _SIL_ROWS))
+    return total / xd.shape[0]
+
+
+def _centers(xd, onehot, counts):
+    return (onehot.T @ xd) / torch.clamp(counts, min=1.0)[:, None]
+
+
+def calinski_harabasz_score(x, labels, n_clusters=None, device=None):
+    xd, lab, k = _inputs(x, labels, n_clusters, device)
+    n = xd.shape[0]
+    onehot, counts = _onehot_stats(lab, k)
+    centers = _centers(xd, onehot, counts)
+    mean = xd.mean(dim=0)
+    between = torch.sum(counts * torch.sum((centers - mean) ** 2, dim=1))
+    within = torch.sum((xd - centers[lab]) ** 2)
+    if within == 0:
+        return 1.0
+    return float(between * (n - k) / (within * (k - 1)))
+
+
+def davies_bouldin_score(x, labels, n_clusters=None, device=None):
+    xd, lab, k = _inputs(x, labels, n_clusters, device)
+    onehot, counts = _onehot_stats(lab, k)
+    centers = _centers(xd, onehot, counts)
+    # mean intra-cluster distance to the centroid
+    dist_to_own = torch.sqrt(torch.clamp(torch.sum((xd - centers[lab]) ** 2, dim=1), min=0.0))
+    s = (dist_to_own[None, :] @ onehot)[0] / torch.clamp(counts, min=1.0)
+    m = _pairwise_euclidean(centers)
+    r = (s[:, None] + s[None, :]) / torch.where(m == 0, torch.full_like(m, float("inf")), m)
+    eye = torch.eye(k, dtype=torch.bool, device=xd.device)
+    r = torch.where(eye, torch.full_like(r, float("-inf")), r)
+    worst = r.max(dim=1).values
+    worst = torch.where(torch.isinf(worst), torch.zeros_like(worst), worst)
+    return float(worst.mean())
+
+
+def rand_score(labels_true, labels_pred):
+    """Rand index from the contingency table (host; inputs are tiny)."""
+    labels_true = np.asarray(labels_true)
+    labels_pred = np.asarray(labels_pred)
+    n = labels_true.size
+    _, ti = np.unique(labels_true, return_inverse=True)
+    _, pi = np.unique(labels_pred, return_inverse=True)
+    cont = np.zeros((ti.max() + 1, pi.max() + 1), dtype=np.int64)
+    np.add.at(cont, (ti, pi), 1)
+
+    def comb2(a):
+        return (a.astype(np.float64) * (a - 1) / 2).sum()
+
+    same_both = comb2(cont)
+    same_true = comb2(cont.sum(axis=1))
+    same_pred = comb2(cont.sum(axis=0))
+    total = n * (n - 1) / 2
+    agreements = same_both + (total - same_true - same_pred + same_both)
+    return float(agreements / total) if total else 1.0

@@ -1,0 +1,135 @@
+"""K-means with sklearn-parity k-means++ initialization (counterpart of
+videotofaces_tpu/ops/kmeans.py, single device).
+
+Replaces ``sklearn.cluster.KMeans(n_clusters=k, random_state=r, n_init='auto')``
+(reference grouping.py:99-101). Design:
+
+- k-means++ seeding runs on the HOST in numpy, drawing from
+  ``np.random.RandomState`` in exactly the published order, so seeds match
+  sklearn (and the JAX package) for the same ``random_state``;
+- Lloyd iterations run on the DEVICE: the assignment step is an [N, K]
+  squared-distance matrix in the ``x2 - 2xc + c2`` form (one matmul), the
+  update step a one-hot [K, N] @ [N, D] matmul; ``torch.argmin`` returns
+  the first minimum, as ``jnp.argmin`` does. Empty clusters are re-seeded
+  on the host from the farthest points (sklearn's relocation rule);
+- convergence mirrors sklearn: strict stop when labels repeat, else stop
+  when the summed squared center shift <= tol * mean(var(X, axis=0)).
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import config
+
+
+def _sq_dists(x, centers):
+    """[N, K] squared euclidean distances (x2 - 2xc + c2, clipped at 0)."""
+    x2 = torch.sum(x * x, dim=1, keepdim=True)
+    c2 = torch.sum(centers * centers, dim=1)
+    return torch.clamp(x2 - 2.0 * (x @ centers.T) + c2, min=0.0)
+
+
+def kmeans_plusplus(x, n_clusters, random_state, n_local_trials=None):
+    """Host k-means++ seeding with sklearn RNG parity. x: [N, D] float array.
+    Returns (centers [K, D], indices [K])."""
+    rs = np.random.RandomState(random_state) if not isinstance(
+        random_state, np.random.RandomState) else random_state
+    x = np.asarray(x)
+    n = x.shape[0]
+    if n_local_trials is None:
+        n_local_trials = 2 + int(np.log(n_clusters))
+    x_sq = np.einsum("ij,ij->i", x, x)
+
+    def sq_dist_rows(rows):
+        return np.maximum(
+            x_sq[rows][:, None] - 2 * rows_dot(rows) + x_sq[None, :], 0)
+
+    def rows_dot(rows):
+        return x[rows] @ x.T
+
+    indices = np.full(n_clusters, -1, dtype=int)
+    first = rs.choice(n, p=np.full(n, 1.0 / n))
+    indices[0] = first
+    closest = sq_dist_rows(np.asarray([first]))[0]
+    current_pot = closest.sum()
+
+    for c in range(1, n_clusters):
+        rand_vals = rs.uniform(size=n_local_trials) * current_pot
+        candidate_ids = np.searchsorted(np.cumsum(closest), rand_vals)
+        np.clip(candidate_ids, None, n - 1, out=candidate_ids)
+        dists = sq_dist_rows(candidate_ids)
+        np.minimum(closest, dists, out=dists)
+        pots = dists.sum(axis=1)
+        best = int(np.argmin(pots))
+        current_pot = pots[best]
+        closest = dists[best]
+        indices[c] = candidate_ids[best]
+
+    return x[indices].copy(), indices
+
+
+def _lloyd_step(x, centers):
+    """One Lloyd iteration on the device: labels, new centers, cluster
+    sizes, distances-to-closest."""
+    d = _sq_dists(x, centers)
+    labels = torch.argmin(d, dim=1)
+    closest = d.min(dim=1).values
+    k = centers.shape[0]
+    onehot = F.one_hot(labels, k).to(x.dtype)                    # [N, K]
+    counts = onehot.sum(dim=0)                                   # [K]
+    sums = onehot.T @ x
+    new_centers = sums / torch.clamp(counts, min=1.0)[:, None]
+    # keep the old center where a cluster went empty (relocated on the host)
+    new_centers = torch.where((counts == 0)[:, None], centers, new_centers)
+    return labels, new_centers, counts, closest
+
+
+def kmeans_fit(x, n_clusters, random_state=0, max_iter=300, tol=1e-4, device=None):
+    """Full K-means fit on ``device`` (None: the card). Returns (labels [N],
+    centers [K, D], inertia)."""
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    n = x.shape[0]
+    if n_clusters >= n:
+        # degenerate sweep point (fewer samples than clusters): every point
+        # its own cluster, higher cluster ids empty. sklearn raises here;
+        # returning gracefully keeps a clusters-range sweep alive, but the
+        # centers contract ([K, D]) is honored — empty clusters get zeros.
+        labels = np.arange(n) % n_clusters
+        centers = np.zeros((n_clusters, x.shape[1]), x.dtype)
+        centers[:n] = x
+        return labels, centers, 0.0
+    device = config.resolve_device(device)
+    centers = torch.from_numpy(kmeans_plusplus(x, n_clusters, random_state)[0]).to(device)
+    xd = torch.from_numpy(x).to(device)
+    tol_abs = tol * float(np.mean(np.var(x, axis=0)))
+
+    labels_prev = None
+    strict = False
+    labels = None
+    for _ in range(max_iter):
+        labels_d, new_centers, counts, closest = _lloyd_step(xd, centers)
+        labels = labels_d.cpu().numpy()
+        counts = counts.cpu().numpy()
+        if (counts == 0).any():  # sklearn: reseed empties from farthest points
+            new_centers = new_centers.cpu().numpy().copy()
+            far = np.argsort(-closest.cpu().numpy())
+            for slot, cid in enumerate(np.nonzero(counts == 0)[0]):
+                new_centers[cid] = x[far[slot]]
+            new_centers = torch.from_numpy(new_centers).to(device)
+        shift = float(torch.sum((new_centers - centers) ** 2))
+        centers = new_centers
+        if labels_prev is not None and np.array_equal(labels, labels_prev):
+            strict = True
+            break
+        labels_prev = labels
+        if shift <= tol_abs:
+            break
+
+    if not strict:  # final e-step against the final centers
+        d = _sq_dists(xd, centers)
+        labels = torch.argmin(d, dim=1).cpu().numpy()
+        inertia = float(d.min(dim=1).values.sum())
+    else:
+        inertia = float(_lloyd_step(xd, centers)[3].sum())
+    return labels, centers.cpu().numpy(), inertia

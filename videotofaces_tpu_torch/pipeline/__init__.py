@@ -1,4 +1,5 @@
-"""Pipeline stages: the detection loop, hash dedup, box post-filtering.
+"""Pipeline stages: the detection loop, hash and embedding dedup, box
+post-filtering, grouping (clustering / classification).
 
 Device compute (model forwards, NMS) lives in models/ and ops/; this package
 is the host-side orchestration around it — video decode, filter/adjust/crop

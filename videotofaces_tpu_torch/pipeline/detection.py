@@ -15,6 +15,7 @@ StageTimer reported after each run; set V2F_PROFILE_DIR to also capture a
 """
 
 import os
+import os.path as osp
 from collections import deque
 
 import numpy as np
@@ -30,8 +31,8 @@ from . import boxfilter as BF
 from .dupes import remove_dupes_nearest, remove_dupes_overall
 
 # detectors of later slices, and the ROADMAP.md item that ports each
-_LATER = {"yolo": "queue 1, item 7 (YOLOv3)",
-          "rcnn": "queue 1, item 9 (Faster R-CNN)"}
+_LATER = {"yolo": "queue 1, item 8 (YOLOv3)",
+          "rcnn": "queue 1, item 7 (Faster R-CNN)"}
 
 
 def resolve_det_model(style, det_model):
@@ -58,9 +59,12 @@ def get_detector_model(style, det_model, device=None, **model_kw):
     return MtcnnDetector(device, **model_kw)
 
 
-def detect_faces(files, model, sampling, criteria, layout, hash_thr):
+def detect_faces(files, model, sampling, criteria, layout, hash_thr,
+                 collect_crops=False):
     """Run detection over every video in ``files``. Returns the saved face
-    image paths. ``sampling``/``criteria``/``layout`` are
+    image paths — plus, with ``collect_crops``, a {filename: BGR array} dict
+    of the surviving crops so grouping can encode straight from memory
+    (``enc_from_memory``). ``sampling``/``criteria``/``layout`` are
     specs.FrameSampling / specs.BoxCriteria / specs.OutputLayout."""
     dedup_on = bool(hash_thr) and hash_thr != -1
     layout.prepare_dirs(dedup_on)
@@ -69,6 +73,7 @@ def detect_faces(files, model, sampling, criteria, layout, hash_thr):
 
     timer = StageTimer()
     names, hashes = [], []
+    crops = {} if collect_crops else None
     with trace():
         for k, path in enumerate(files):
             print("Processing " + path)
@@ -76,7 +81,7 @@ def detect_faces(files, model, sampling, criteria, layout, hash_thr):
             file_layout = layout if len(files) == 1 else \
                 layout.with_prefix(layout.prefix + "%02d_" % (k + 1))
             n, h = process_video(path, model, sampling, criteria, file_layout,
-                                 hash_thr, timer)
+                                 hash_thr, timer, crops)
             names += n
             hashes += h
 
@@ -92,10 +97,14 @@ def detect_faces(files, model, sampling, criteria, layout, hash_thr):
     print("Saved a total of %u faces to: %s" % (len(paths), layout.faces_dir))
     print()
     timer.report()
+    if collect_crops:
+        keep = {osp.basename(fn) for fn in names}
+        return paths, {k: v for k, v in crops.items() if k in keep}
     return paths
 
 
-def process_video(path, model, sampling, criteria, layout, hash_thr, timer=None):
+def process_video(path, model, sampling, criteria, layout, hash_thr, timer=None,
+                  crops=None):
     """One video through the detector. Returns (face filenames, their hashes)."""
     reader = open_reader(path, sampling.reader)
     if not reader.is_open():
@@ -114,7 +123,7 @@ def process_video(path, model, sampling, criteria, layout, hash_thr, timer=None)
                                         sampling.area)
     try:
         return process_stream(source, len(indices), model, criteria, layout,
-                              hash_thr, timer)
+                              hash_thr, timer, crops)
     finally:
         # join the decode thread(s) BEFORE releasing the reader: a worker may
         # be mid-read, and cv2.VideoCapture is not safe against a concurrent
@@ -123,7 +132,8 @@ def process_video(path, model, sampling, criteria, layout, hash_thr, timer=None)
             reader.close()
 
 
-def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=None):
+def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=None,
+                   crops=None):
     """The detector loop over any (indices, frames) batch source, for a
     model with ``submit``/``collect``. Returns (face filenames, their
     hashes)."""
@@ -147,7 +157,7 @@ def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=No
             with timer.stage("host:postprocess"):
                 batch_names, new_hashes = process_frames_batch(
                     b_frames, b_idx, detout, criteria, layout, hash_thr,
-                    hashes, writer)
+                    hashes, writer, crops)
             names.extend(batch_names)
             pbar.update(len(b_idx))
             return new_hashes
@@ -171,7 +181,7 @@ def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=No
 
 
 def process_frames_batch(frames, indices, detout, criteria, layout, hash_thr,
-                         hashes, writer):
+                         hashes, writer, crops=None):
     """Host post-processing for one batch. ``detout`` is the detector output:
     a list of [n, 5] (x1, y1, x2, y2, score) arrays, one per frame."""
     img_size = frames[0].shape[:2]
@@ -211,7 +221,9 @@ def process_frames_batch(frames, indices, detout, criteria, layout, hash_thr,
     # previous-5 hash dedup
     if hash_thr and hash_thr != -1:
         faces, hashes = remove_dupes_nearest(faces, hashes, hash_thr, layout)
-    # async writes
+    # async writes (and the optional in-memory copy for enc_from_memory)
     for img, fn in faces:
+        if crops is not None:
+            crops[fn] = img
         writer.write(layout.face_path(fn), img)
     return [fn for (_, fn) in faces], hashes

@@ -1,6 +1,5 @@
-"""Hash duplicate removal with audit logs (counterpart of
-videotofaces_tpu/pipeline/dupes.py, its hash parts; the embedding dedup
-comes with the grouping slice).
+"""Three-part duplicate removal with audit logs (counterpart of
+videotofaces_tpu/pipeline/dupes.py).
 
 Behavioral contract (reference dupes.py):
 
@@ -9,11 +8,13 @@ Behavioral contract (reference dupes.py):
    marks a duplicate (window [-5:], dupes.py:18-48).
 2. ``remove_dupes_overall(..., "hash")`` — all-pairs hamming over survivors;
    a face is a duplicate if some EARLIER face is within thr (dupes.py:51-93).
+3. ``remove_dupes_overall(..., "enc")`` — the same with cosine distances over
+   embeddings (main.py:72-74).
 
 Duplicates are deleted, or moved to intermediate/dupesN with log_dupesN.csv
 when save_dupes is set. Hashes are packed as one uint64 per face; distances
 are integer popcounts, computed by the native C++ library (utils/native.py)
-or its numpy fallback.
+or its numpy fallback. Cosine distances run as a Gram matrix on the device.
 """
 
 import os
@@ -21,8 +22,10 @@ import os.path as osp
 
 import cv2
 import numpy as np
+import torch
 
 from .. import config
+from ..ops import distances as D
 from ..utils import native as NV
 
 _WINDOW = 5  # how many kept predecessors each new face is checked against
@@ -117,17 +120,23 @@ def _write_dupes1_log(log, layout):
                 f.write("%s,%s,%u,%u\n" % row)
 
 
-def remove_dupes_overall(x, filenames, measure_type, threshold, layout):
+def _nearest_earlier(x, measure_type, device):
+    """(min distance, argmin index) over all EARLIER rows, per row."""
+    if measure_type == "hash":
+        return NV.hamming_nearest_earlier(np.ascontiguousarray(x, dtype=np.uint64))
+    feats = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+    mins, inds = D.dedup_cosine(feats.to(config.resolve_device(device)))
+    return mins.cpu().numpy(), inds.cpu().numpy()
+
+
+def remove_dupes_overall(x, filenames, measure_type, threshold, layout, device=None):
     """All-pairs dedup against earlier faces. ``x``: [N] packed uint64
-    hashes; returns (x without duplicates, surviving names)."""
-    if measure_type != "hash":
-        raise NotImplementedError(
-            "embedding dedup (measure_type=%r) comes with the grouping slice "
-            "(ROADMAP.md queue 1, item 6)" % (measure_type,))
+    hashes or [N, D] embeddings (whose cosine Gram runs on ``device``; None:
+    the card); returns (x without duplicates, surviving names)."""
     if len(filenames) == 0:
         return x, filenames
 
-    mins, inds = NV.hamming_nearest_earlier(np.ascontiguousarray(x, dtype=np.uint64))
+    mins, inds = _nearest_earlier(x, measure_type, device)
     is_dup = mins <= threshold
     is_dup[0] = False  # row 0 has no earlier face (sentinel distance 10000)
 
@@ -141,15 +150,19 @@ def remove_dupes_overall(x, filenames, measure_type, threshold, layout):
             if osp.isfile(p):
                 os.remove(p)
     else:
-        dup_dir = layout.intermediate("dupes2")
+        part, colname = ("2", "hash_diff") if measure_type == "hash" else ("3", "distance")
+        dup_dir = layout.intermediate("dupes" + part)
         os.makedirs(dup_dir, exist_ok=True)
         for fn in dupes:
             base = osp.basename(fn)
             if osp.isfile(layout.face_path(base)):
                 os.replace(layout.face_path(base), osp.join(dup_dir, base))
-        with open(layout.intermediate("log_dupes2.csv"), "w") as f:
-            f.write("file_name,nearest_in_prev,hash_diff,marked_as_duplicate\n")
+        with open(layout.intermediate("log_dupes%s.csv" % part), "w") as f:
+            f.write("file_name,nearest_in_prev,%s,marked_as_duplicate\n" % colname)
             for i in range(1, len(filenames)):
                 f.write("%s,%s,%s,%s\n" % (filenames[i], filenames[inds[i]],
                                            str(mins[i]), "1" if is_dup[i] else "0"))
+
+    if measure_type != "hash" and is_dup.any():
+        print("Removed %u near-duplicates" % int(is_dup.sum()))
     return x, goods

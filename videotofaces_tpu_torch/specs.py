@@ -4,13 +4,12 @@ The reference threads positional tuples (``vid_params`` / ``det_params`` /
 ``save_params``, main.py:57-59) through three layers of calls; SURVEY §5 calls
 that out as fragile. Here each pipeline stage gets a small frozen dataclass
 with named fields and the path helpers the stage needs, constructed once in
-``api.video_to_faces`` and passed down intact. (This slice of the port has
-the detection stage's specs; the grouping specs come with its slice.)
+``api.video_to_faces`` and passed down intact.
 """
 
 import os
 import os.path as osp
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Optional, Sequence, Tuple
 
 
@@ -72,3 +71,30 @@ class OutputLayout:
             if sub:
                 os.makedirs(self.intermediate(*sub), exist_ok=True)
 
+
+@dataclass(frozen=True)
+class ClusterSpec:
+    """K-means model selection (reference grouping.py:92-137)."""
+
+    candidates: Sequence[int] = field(default_factory=lambda: list(range(2, 9)))
+    keep_all: bool = False           # save every candidate k under G<k>/
+    random_state: int = 0
+    write_log: bool = True
+
+
+@dataclass(frozen=True)
+class ClassifySpec:
+    """Nearest-reference classification (reference grouping.py:50-89)."""
+
+    refs: Sequence[Tuple[str, Sequence[str]]] = ()   # [(class, [image paths])]
+    other_thr: Optional[float] = 0.9  # min-dist >= thr -> "other"; falsy/-1 off
+    write_log: bool = True
+
+
+@dataclass(frozen=True)
+class EncodeSpec:
+    """Face-embedding batching (reference grouping.py:29-40)."""
+
+    batch_size: int = 16
+    area: Optional[Sequence[float]] = None   # fractional pre-crop
+    dup_thr: Optional[float] = 0.25          # cosine dedup; falsy/-1 disables

@@ -3,7 +3,8 @@
 Converted checkpoints live in ``<repo>/weights/*.npz`` as flat "a/b/c" keys in
 the JAX package's layout (HWIO conv kernels, [in, out] dense kernels — see
 tools/convert_weights.py). The port reads the same files and turns the nested
-numpy tree into ``state_dict``s for its ``nn.Module``s with ``mtcnn_from_jax``.
+numpy tree into ``state_dict``s for its ``nn.Module``s with ``mtcnn_from_jax``
+and ``facenet_from_jax``.
 """
 
 import os
@@ -91,6 +92,27 @@ def jax_to_state_dict(tree):
             else:
                 raise ValueError(f"unexpected kernel rank at {key}: {val.shape}")
         sd[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(val))
+    return sd
+
+
+_BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var"}
+
+
+def facenet_from_jax(params_np):
+    """The JAX package's InceptionResnetV1 parameter tree (numpy arrays) ->
+    the port's ``state_dict``: ``*/conv/kernel`` HWIO -> OIHW, the residual
+    ``*/out/{kernel, bias}`` to a conv with bias, ``head/kernel`` [1792, 512]
+    -> [512, 1792], and every BatchNorm (``*/bn``, ``head_bn``)
+    ``{scale, bias, mean, var}`` -> ``{weight, bias, running_mean,
+    running_var}`` plus a zero ``num_batches_tracked``."""
+    sd = {}
+    for key, val in jax_to_state_dict(params_np).items():
+        parts = key.split(".")
+        if parts[-2] in ("bn", "head_bn"):
+            parts[-1] = _BN_NAMES[parts[-1]]
+            sd[".".join(parts[:-1] + ["num_batches_tracked"])] = torch.tensor(0)
+        sd[".".join(parts)] = val
     return sd
 
 
