@@ -15,7 +15,10 @@ any failed, printing no result line):
    bf16 plus two levels in f32, ``pool_crops`` at the stage-2 (2048 x 24 px)
    and stage-3 (512 x 48 px) slot tables, ``resize_normalize`` (K5) on 128
    packed crops to 160 px (beside a per-image ``F.interpolate`` loop, the
-   nearest library computation);
+   nearest library computation) and to 128 px with the ViT affine,
+   ``roi_align`` (K4) on a 1080p pyramid of the seeded R-CNN at batch 2 with
+   its 1,000 RPN proposals per image and synthetic boxes (level edges, a 1:20
+   box), in f32 and bf16;
 4. the main paths through the user entry points, each with every launch
    count set to 0 just before it and read just after:
    a. ``MtcnnDetector(params=seeded, bf16=True)``, precision "default", on
@@ -35,7 +38,19 @@ any failed, printing no result line):
       ``encode_faces`` -> embedding dedup -> ``cluster_faces`` (faces
       survive, group folders exist, all three kernels launched);
    g. ``video_to_faces(mode="full", style="live", det_model="mtcnn")`` with
-      its defaults.
+      its defaults;
+   h. ``FrcnnDetector(params=seeded, bf16=True)``, precision "default", on
+      two seeded 1080p frames (ms per batch, K4 launches = batches, device
+      busy share);
+   i. the f32 detector in "highest", kernel path against plain RoIAlign on
+      the card: equal detection counts, boxes and scores within tolerance;
+   j. ``VitEncoder`` (B16, batch 128), precision "default", on 1,024 crops
+      through the host-cv2 path and the ``device_resize=True`` path (K5 at
+      out 128);
+   k. ``video_to_faces(input_path, out_dir)`` with every other argument at
+      its default — the anime path: Faster R-CNN, ViT-B16, embedding dedup,
+      K-means, with the seeded random weights of a missing checkpoint, which
+      find faces in 1080p frames — on a synthetic 1080p video (K4 launches).
 
 Its last two lines are a JSON object listing every kernel with its launches,
 error and times, and ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -347,22 +362,155 @@ def unit_blobs(seed, n, d=512, k=8, spread=0.6):
     return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
 
 
-def reset_launches():
+def jax_layout_shapes(module, rename=()):
+    """{"a/b/kernel": shape} of a port module's parameters in the JAX
+    package's layout (what the wrappers' ``params=`` take): OIHW -> HWIO,
+    [out, in] -> [in, out], BatchNorm {weight, bias, running_mean,
+    running_var} -> {scale, bias, mean, var}, LayerNorm weight -> scale;
+    ``rename`` maps first-level module names (port -> JAX)."""
+    bn = {"weight": "scale", "bias": "bias", "running_mean": "mean", "running_var": "var"}
+    out = {}
+    for key, val in module.state_dict().items():
+        parts, shape = key.split("."), tuple(val.shape)
+        if parts[-1] == "num_batches_tracked":
+            continue
+        if len(parts) > 1 and parts[-2] == "bn":
+            parts[-1] = bn[parts[-1]]
+        elif parts[-1] == "weight" and len(shape) in (2, 4):
+            parts[-1] = "kernel"
+            shape = shape[2:] + shape[1::-1] if len(shape) == 4 else shape[::-1]
+        elif parts[-1] == "weight":
+            parts[-1] = "scale"
+        parts[0] = dict(rename).get(parts[0], parts[0])
+        out["/".join(parts)] = shape
+    return out
+
+
+def frcnn_params(seed, cls_shift=1.0):
+    """Faster R-CNN {"body", "head"} tree in the JAX package's layout, the
+    recipe of the port's parity tests (tests/test_torch_rcnn.py): kernels
+    N(0, 1/fan_in) (regression heads x 0.1), BatchNorm scale 1 + N(0, 0.1)
+    (x 0.2 on each bottleneck's last unit), var 0.8 + |N| * 0.2, biases and
+    means N(0, 0.1), and the RoI head's face logit shifted by
+    ``cls_shift``."""
+    import torch
+
+    from videotofaces_tpu_torch.models.rcnn import AnimeFRCNN
+    from videotofaces_tpu_torch.utils.weights import unflatten
+
+    with torch.device("meta"):
+        model = AnimeFRCNN()
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for part in ("body", "head"):
+        shapes = jax_layout_shapes(getattr(model, part), (("backbone", "ResNet_0"),))
+        for key, shape in sorted(shapes.items()):
+            keys = key.split("/")
+            name = keys[-1]
+            x = rng.normal(0.0, 1.0, shape)
+            if name == "kernel":
+                x *= np.sqrt(1.0 / np.prod(shape[:-1])) * (0.1 if keys[-2] == "reg" else 1.0)
+            elif name == "var":
+                x = np.abs(x) * 0.2 + 0.8
+            elif name == "scale":
+                x = (0.2 if "u3" in keys else 1.0) * (1.0 + 0.1 * x)
+            else:
+                x *= 0.1
+            if part == "head" and keys[-2] == "cls" and name == "bias":
+                x[0] += cls_shift
+            flat[part + "/" + key] = x.astype(np.float32)
+    return unflatten(flat)
+
+
+def roi_synthetic_boxes():
+    """Boxes on a 1080p frame's 750 x 1333 canvas that every roi table of 3d
+    carries: sqrt(wh) on the level edges (112, 224, 448 and one float32 ulp
+    either side), one box per level, a 1:20 box (k = 11 > 8 samples per bin
+    on P3), a 1 px box and a box running off the canvas."""
+    out = []
+    for v in (112.0, 224.0, 448.0):
+        for s in (np.nextafter(np.float32(v), np.float32(0)), np.float32(v),
+                  np.nextafter(np.float32(v), np.float32(1e9))):
+            out.append([100.0, 120.0, 100.0 + s, 120.0 + s])
+    out += [[40.0, 60.0, 80.0, 100.0], [300.0, 200.0, 460.0, 360.0],
+            [500.0, 100.0, 800.0, 400.0], [600.0, 50.0, 1300.0, 740.0],
+            [10.0, 300.0, 610.0, 330.0], [700.0, 500.0, 701.0, 501.0],
+            [1200.0, 650.0, 1500.0, 900.0]]
+    return np.asarray(out, np.float32)
+
+
+def roi_work(boxes, valid, fmap_hw, c, esize):
+    """(bytes, operations) of K4 on this run's rois: the level pixels that
+    valid rois touch (each roi's feature-coordinate rectangle, clipped, plus
+    the bilinear halo; their union per image and level) read once, the
+    pooled float32 output, boxes, levels and flags; per sample inside the
+    level and per channel, 4 taps x a multiply-add, plus one scale per
+    output."""
+    import torch
+
+    from videotofaces_tpu_torch.ops import roi_align as RA
+
+    lv = RA.assign_fpn_levels(boxes).cpu().numpy()
+    bx, v = boxes.double().cpu().numpy(), valid.cpu().numpy()
+    b, r = v.shape
+    cover = [np.zeros((b, h, w), bool) for h, w in fmap_hw]
+    samples = 0
+    for img, k in zip(*np.nonzero(v)):
+        level = lv[img, k]
+        h, w = fmap_hw[level]
+        x1, y1, x2, y2 = bx[img, k] / RA.STRIDES[level] - 0.5
+        cover[level][img, max(int(np.floor(y1)), 0):max(min(int(np.ceil(y2)) + 2, h), 0),
+                     max(int(np.floor(x1)), 0):max(min(int(np.ceil(x2)) + 2, w), 0)] = True
+        per_axis = []
+        for c1, c2, size in ((y1, y2, h), (x1, x2, w)):
+            n = min(int(np.ceil(max(c2 - c1, 0.0) / 7 - 1e-9)), 8)
+            step = (c2 - c1) / 7 / max(n, 1)
+            t = c1 + np.arange(7)[:, None] * (c2 - c1) / 7 + (np.arange(n)[None] + 0.5) * step
+            per_axis.append(((t >= -1) & (t <= size)).sum(1))
+        samples += int(per_axis[0].sum() * per_axis[1].sum())
+    touched = sum(int(m.sum()) for m in cover)
+    nbytes = touched * c * esize + b * r * (49 * c * 4 + 16 + 4 + 1)
+    return nbytes, samples * c * 8 + b * r * 49 * c
+
+
+@contextlib.contextmanager
+def plain_roi_align():
+    """Route the detector's RoIAlign to its plain version for tensors on the
+    card (the comparison path of phase 4i)."""
+    import torch
+
+    from videotofaces_tpu_torch.models import rcnn as R
+    from videotofaces_tpu_torch.ops import roi_align as RA
+
+    def plain(fmaps, boxes, valid, strides):
+        zeros = torch.zeros((boxes.shape[0],), dtype=torch.int32, device=boxes.device)
+        return RA.roi_align_fpn_plain(fmaps, boxes, valid, strides), zeros, valid.clone(), zeros
+
+    saved = R.roi_align_fpn
+    R.roi_align_fpn = plain
+    try:
+        yield
+    finally:
+        R.roi_align_fpn = saved
+
+
+def _kernel_fns():
     from videotofaces_tpu_torch.ops import crops_kernel as CK
     from videotofaces_tpu_torch.ops import pnet_kernel as PK
     from videotofaces_tpu_torch.ops import resize_kernel as RK
+    from videotofaces_tpu_torch.ops import roi_align_kernel as RAK
 
-    for fn in (PK.pnet_level, CK.pool_crops, RK.resize_normalize):
+    return {"pnet_level": PK.pnet_level, "pool_crops": CK.pool_crops,
+            "resize_normalize": RK.resize_normalize, "roi_align": RAK.roi_align_cuda}
+
+
+def reset_launches():
+    for fn in _kernel_fns().values():
         fn.launches = 0
 
 
 def read_launches():
-    from videotofaces_tpu_torch.ops import crops_kernel as CK
-    from videotofaces_tpu_torch.ops import pnet_kernel as PK
-    from videotofaces_tpu_torch.ops import resize_kernel as RK
-
-    return {"pnet_level": PK.pnet_level.launches, "pool_crops": CK.pool_crops.launches,
-            "resize_normalize": RK.resize_normalize.launches}
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
 
 
 def write_video(path, frames, fps):
@@ -564,6 +712,19 @@ def main():
             "bound %.4f ms (%s; %.1f MB, %.3f GFLOP)  max|kernel-plain| %.3g (tol atol "
             "1e-5)  max|library-kernel| %.3g (not gated)"
             % (k_ms, p_ms, l_ms, bl, by, nb / 1e6, ops / 1e9, err, lib_err))
+        # the ViT's input: out 128, (x - 127.5) / 127.5
+        v_scale = 1 / 127.5
+        got = RK.resize_normalize(packed, hw, 128, v_scale, mean)
+        want = RK.resize_normalize_plain(packed, hw, 128, v_scale, mean)
+        torch.cuda.synchronize()
+        v_err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        v_ms = cuda_ms(lambda: RK.resize_normalize(packed, hw, 128, v_scale, mean), 50, 3)
+        v_plain = cuda_ms(lambda: RK.resize_normalize_plain(packed, hw, 128, v_scale, mean), 5)
+        v_bound, _ = bound_ms(*resize_work(sizes_np, 128), "float32")
+        log("   ViT input (out 128, affine 1/127.5 about 127.5): kernel %.4f ms  plain %.3f ms  "
+            "bound %.4f ms  max|kernel-plain| %.3g (tol atol 1e-5)"
+            % (v_ms, v_plain, v_bound, v_err))
         kernels["resize_normalize"] = dict(
             name="resize_normalize", route="cuda",
             source="videotofaces_tpu_torch/csrc/resize_normalize.cu",
@@ -571,7 +732,82 @@ def main():
             launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bl,
             bound_by=by, library_ms=l_ms, library_max_abs_diff=lib_err,
             tol=dict(rtol=0, atol=1e-5),
-            shape="N=128 crops 141-180 x 180 in 256 slots -> 160 px")
+            shape="N=128 crops 141-180 x 180 in 256 slots -> 160 px",
+            vit_out128=dict(ms=v_ms, plain_ms=v_plain, bound_ms=v_bound, max_abs_err=v_err))
+
+    with phase("3d. roi_align kernel vs plain (B=2 x 1,000 rois on a 1080p pyramid, "
+               "f32 and bf16)"):
+        from videotofaces_tpu_torch.models import rcnn as R
+        from videotofaces_tpu_torch.ops import roi_align as RA
+        from videotofaces_tpu_torch.ops import roi_align_kernel as RAK
+        from videotofaces_tpu_torch.ops.anchors import get_priors
+
+        ftree = frcnn_params(0)
+        nh, nw = R.resized_shape(H, W)
+        canvas = R.canvas_shape(nh, nw)
+        priors = [torch.from_numpy(p).to(dev) for p in get_priors(
+            canvas, R.frcnn_bases(), loc="corner", concat=False)]
+        synth = torch.from_numpy(roi_synthetic_boxes()).to(dev)
+        roi_entry = None
+        for dtype, prec in ((torch.float32, "highest"), (torch.bfloat16, "default")):
+            name = "bf16" if dtype == torch.bfloat16 else "f32"
+            model = R.AnimeFRCNN.from_jax(ftree).to(dev).to(dtype).eval()
+            with torch.no_grad(), config.precision_scope(prec):
+                x = R.preprocess(frames, (nh, nw), canvas,
+                                 dtype if dtype == torch.bfloat16 else None)
+                pyramid, regs, logs = model.body(x)
+                used = torch.tensor([[nh, nw]] * B, dtype=torch.float32, device=dev)
+                boxes, valid, _ = R.rpn_proposals([t.float() for t in regs],
+                                                  [t.float() for t in logs], priors, used)
+            del model
+            # the lowest-scoring slots of each image carry the synthetic boxes
+            boxes = boxes.clone()
+            boxes[:, -len(synth):] = synth
+            valid = valid.clone()
+            valid[:, -len(synth):] = True
+            fmaps = [p.permute(0, 2, 3, 1).contiguous() for p in pyramid[:4]]
+            del pyramid, regs, logs
+            levels = RA.assign_fpn_levels(boxes).to(torch.int32)
+            got = RA.roi_align_fpn(fmaps, boxes, valid)[0]
+            want = RA.roi_align_fpn_plain(fmaps, boxes, valid)
+            torch.cuda.synchronize()
+            amax = max(float(f.float().abs().max()) for f in fmaps)
+            err = (got - want).abs().max().item()
+            # same weights on both sides; per-tap against per-row float32 sums
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * amax)
+            assert (got[~valid] == 0).all()
+            del got, want
+            k_ms = cuda_ms(lambda: RAK.roi_align_cuda(fmaps, boxes, levels, valid, RA.STRIDES),
+                           20, 3)
+            p_ms = cuda_ms(lambda: RA.roi_align_fpn_plain(fmaps, boxes, valid), 2)
+            esize = 2 if dtype == torch.bfloat16 else 4
+            nb, ops = roi_work(boxes, valid, [tuple(f.shape[1:3]) for f in fmaps], 256, esize)
+            bl, by = bound_ms(nb, ops, "float32")       # float32 arithmetic either way
+            counts = torch.bincount(levels[valid].flatten().long(), minlength=4).tolist()
+            log("   %s: %d valid rois (per level P2..P5 %s), kernel %.4f ms  plain %.3f ms  "
+                "bound %.4f ms (%s; %.1f MB, %.2f GFLOP)  max|kernel-plain| %.3g "
+                "(max|feature| %.3g; tol rtol 1e-5, atol 1e-5 x max|feature|)"
+                % (name, int(valid.sum()), counts, k_ms, p_ms, bl, by, nb / 1e6, ops / 1e9,
+                   err, amax))
+            entry = dict(
+                name="roi_align", route="cuda",
+                source="videotofaces_tpu_torch/csrc/roi_align.cu",
+                replaces="videotofaces_tpu/ops/pallas_roialign.py:153 (roi_align_patches); "
+                         "launched by videotofaces_tpu/ops/roi_align.py:431 "
+                         "(roi_align_multilevel_pallas)",
+                launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bl,
+                bound_by=by, library_ms=None,
+                tol=dict(rtol=1e-5, atol="1e-5 x max|feature|"),
+                shape="B=2 x 1000 rois (seeded RPN proposals + %d synthetic) on a "
+                      "768x1344 canvas, P2 192x336 .. P5 24x42, C=256, %s"
+                      % (len(synth), name))
+            if dtype == torch.bfloat16:
+                entry["f32"] = roi_entry
+                roi_entry = entry
+            else:
+                roi_entry = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bl, max_abs_err=err)
+            del fmaps
+        kernels["roi_align"] = roi_entry
 
     det = None
     with phase("4a. main path: MtcnnDetector(bf16=True), precision default"):
@@ -775,8 +1011,8 @@ def main():
             assert len(kept) > 9, "too few faces survive to try every k"
             assert len(groups) >= 2 and all(
                 os.listdir(osp.join(layout.faces_dir, g)) for g in groups)
-            for name, count in launches.items():
-                assert count > 0, "%s was not launched on the full path" % name
+            for name in ("pnet_level", "pool_crops", "resize_normalize"):
+                assert launches[name] > 0, "%s was not launched on the full path" % name
 
     with phase("4g. video_to_faces(mode='full', style='live', det_model='mtcnn')"):
         from videotofaces_tpu_torch import video_to_faces
@@ -795,6 +1031,121 @@ def main():
                 % (time.perf_counter() - t0, read_launches()))
             assert read_launches()["pnet_level"] > 0
             assert osp.isdir(osp.join(out_dir, "faces"))
+
+    with phase("4h. main path: FrcnnDetector(bf16=True), precision default, B=2 1080p"):
+        from videotofaces_tpu_torch.models.wrappers import FrcnnDetector
+        from videotofaces_tpu_torch.ops import roi_align_kernel as RAK
+
+        config.set_precision("default")
+        det = FrcnnDetector(params=frcnn_params(0), bf16=True)
+        assert det.device.type == "cuda"
+        batch = list(frames_np)
+        for _ in range(2):
+            det(batch)                                   # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        iters, times = 5, []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            boxes, scores, classes = det.collect(det.submit(batch))
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        log("   detector ms per batch of %d: mean %.2f, min %.2f, all %s"
+            % (B, np.mean(times), np.min(times), ["%.2f" % t for t in times]))
+        log("   launches over %d batches: %s" % (iters, launches))
+        assert launches["roi_align"] == iters, launches
+        kernels["roi_align"]["launches"] = launches["roi_align"]
+        log("   detections per frame: %s, scores %s" % (
+            [len(b) for b in boxes], ["%.3f-%.3f" % (s.min(), s.max()) for s in scores if len(s)]))
+        assert len(boxes) == B and all(len(b) > 0 for b in boxes)
+        for b, sc in zip(boxes, scores):
+            assert b.shape[1] == 4 and np.isfinite(b).all() and np.isfinite(sc).all()
+        profile_batch(det, batch)
+        del det
+
+    with phase("4i. FrcnnDetector f32 'highest': kernel path vs plain path on the card"):
+        from videotofaces_tpu_torch.models.wrappers import FrcnnDetector
+        from videotofaces_tpu_torch.ops import roi_align_kernel as RAK
+
+        det32 = FrcnnDetector(params=frcnn_params(0))
+        batch = list(frames_np)
+        with config.precision_scope("highest"):
+            n0 = RAK.roi_align_cuda.launches
+            got = det32(batch)
+            assert RAK.roi_align_cuda.launches == n0 + 1
+            with plain_roi_align():
+                want = det32(batch)
+            assert RAK.roi_align_cuda.launches == n0 + 1
+        del det32
+        log("   detections per frame: kernel path %s, plain path %s"
+            % ([len(b) for b in got[0]], [len(b) for b in want[0]]))
+        for i in range(B):
+            assert len(got[0][i]) == len(want[0][i]) > 0, "valid counts differ"
+            log("   image %d: max|box diff| %.3g px, max|score diff| %.3g"
+                % (i, np.abs(got[0][i] - want[0][i]).max(),
+                   np.abs(got[1][i] - want[1][i]).max()))
+            np.testing.assert_allclose(got[1][i], want[1][i], rtol=1e-4, atol=1e-5)
+            np.testing.assert_allclose(got[0][i], want[0][i], rtol=1e-4, atol=1e-2)
+
+    with phase("4j. VitEncoder B16 (batch 128), precision default: host cv2 vs "
+               "device_resize (K5 at out 128), 1,024 crops"):
+        from videotofaces_tpu_torch.models.wrappers import VitEncoder
+        from videotofaces_tpu_torch.ops import resize_kernel as RK
+
+        config.set_precision("default")
+        crops = encoder_crops(8, 1024)
+        embs = {}
+        for name, kw in (("host_cv2", {}), ("device_resize", {"device_resize": True})):
+            enc = VitEncoder(batch_size=128, **kw)
+            enc(crops[:128])                                   # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            embs[name] = np.concatenate([enc(crops[i:i + 128])
+                                         for i in range(0, len(crops), 128)])
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            log("   %-13s %8.1f faces/s (%d crops in %.3f s, host resize/pack, H2D, "
+                "forward, D2H); launches %s" % (name, len(crops) / wall, len(crops), wall,
+                                                launches))
+            if kw:
+                assert launches["resize_normalize"] == len(crops) // 128, launches
+                pk, sz = RK.pack_images(crops[:128])
+                x = RK.resize_normalize(torch.from_numpy(pk).to(dev),
+                                        torch.from_numpy(sz).to(dev), 128, 1 / 127.5, 127.5)
+                with torch.inference_mode():
+                    fwd = cuda_ms(lambda: enc.model(x), 10, 2)
+                log("   forward alone, batch 128 staged on the card: %.3f ms (%.1f faces/s)"
+                    % (fwd, 128e3 / fwd))
+                profile_batch(enc, crops[:128])
+            else:
+                assert launches["resize_normalize"] == 0, launches
+        diff = np.abs(embs["host_cv2"] - embs["device_resize"]).max()
+        log("   embeddings host vs device_resize: max|diff| %.4g (cv2 fixed-point vs float "
+            "bilinear, TF32)" % diff)
+        assert embs["device_resize"].shape == (1024, 768)
+        assert np.isfinite(embs["device_resize"]).all()
+
+    with phase("4k. video_to_faces() with its defaults (anime: Faster R-CNN + ViT-B16, "
+               "full) on a synthetic 1080p video"):
+        from videotofaces_tpu_torch import video_to_faces
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = osp.join(tmp, "synthetic_1080p.mp4")
+            write_video(path, seeded_frames(19, b=16), 4.0)
+            out_dir = osp.join(tmp, "out")
+            os.makedirs(out_dir)
+            reset_launches()
+            t0 = time.perf_counter()
+            video_to_faces(input_path=path, out_dir=out_dir)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            faces = [f for _, _, fs in os.walk(osp.join(out_dir, "faces")) for f in fs
+                     if f.endswith(".jpg")]
+            log("   full mode run in %.2f s: %d face images kept; launches %s"
+                % (time.perf_counter() - t0, len(faces), launches))
+            assert launches["roi_align"] > 0, launches
+            assert faces, "the anime path found no faces"
 
     if failures:
         print("chip_smoke: %d phase(s) failed:\n  %s" % (len(failures),

@@ -18,6 +18,8 @@ from videotofaces_tpu_torch.models import mtcnn as TM
 from videotofaces_tpu_torch.ops import crops_kernel as CK
 from videotofaces_tpu_torch.ops import pnet_kernel as PK
 from videotofaces_tpu_torch.ops import resize_kernel as RK
+from videotofaces_tpu_torch.ops import roi_align as RA
+from videotofaces_tpu_torch.ops import roi_align_kernel as RAK
 from videotofaces_tpu_torch.utils.weights import unflatten
 
 # float32: accumulation order only (fma chains in the kernel, cuDNN in the
@@ -200,3 +202,67 @@ def test_resize_normalize_empty_batch_launches_nothing():
         RK.resize_normalize(torch.zeros((1, 64, 64, 3), dtype=torch.uint8, device="cuda"),
                             torch.ones((1, 2), dtype=torch.int64, device="cuda"), 160,
                             1 / 128.0, 127.5)
+
+
+def _roi_inputs(seed, dtype, b=2, r=300, c=256):
+    """A 4-level pyramid of a 192 x 336 canvas and a seeded roi mix: random
+    boxes of every size, boxes on the level edges (sqrt(wh) of 112, 224,
+    448), a 1:20 box (k > 8 samples per bin), boxes off the canvas, and
+    about a tenth of the slots not valid."""
+    rng = np.random.default_rng(seed)
+    sizes = [(48, 84), (24, 42), (12, 21), (6, 11)]
+    fmaps = [torch.from_numpy(rng.normal(0, 1, (b, h, w, c)).astype(np.float32)).cuda().to(dtype)
+             for h, w in sizes]
+    x1, y1 = rng.uniform(-20, 330, (b, r)), rng.uniform(-20, 190, (b, r))
+    side = np.exp(rng.uniform(np.log(1), np.log(500), (b, r)))
+    asp = np.exp(rng.normal(0, 0.6, (b, r)))
+    boxes = np.stack([x1, y1, x1 + side * asp, y1 + side / asp], -1).astype(np.float32)
+    boxes[0, :5] = [[0, 0, 112, 112], [10, 10, 234, 234], [0, 0, 448, 448],
+                    [2, 20, 322, 36], [100, 50, 101, 51]]
+    valid = rng.random((b, r)) >= 0.1
+    return fmaps, torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_roi_align_kernel_matches_plain(dtype):
+    """K4 against the plain dense method on the same levels (bf16 levels are
+    read as float32 by both): the weights are the same, the sums are taken
+    per tap in the kernel and per weight row in the plain version, so they
+    agree to float32 rounding: rtol 1e-5, atol 1e-5 x max|feature|."""
+    _need_cuda()
+    fmaps, boxes, valid = _roi_inputs(7, dtype)
+    n0 = RAK.roi_align_cuda.launches
+    got, dropped, kept, truncated = RA.roi_align_fpn(fmaps, boxes, valid)
+    torch.cuda.synchronize()
+    assert RAK.roi_align_cuda.launches == n0 + 1
+    assert got.shape == (2, 300, 7, 7, 256) and got.dtype == torch.float32
+    assert dropped.tolist() == [0, 0] and truncated.tolist() == [0, 0]
+    assert torch.equal(kept, valid)
+    want = RA.roi_align_fpn_plain(fmaps, boxes, valid)
+    amax = max(float(f.float().abs().max()) for f in fmaps)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * amax)
+    assert (got[~valid] == 0).all()
+    assert RA.assign_fpn_levels(boxes[0, :3]).tolist() == [1, 2, 3]
+
+
+@pytest.mark.cuda
+def test_roi_align_kernel_all_invalid_and_empty():
+    """Slots that are not valid come out zero (one launch); an empty roi
+    table launches nothing and is not counted."""
+    _need_cuda()
+    fmaps, boxes, valid = _roi_inputs(8, torch.bfloat16, r=40)
+    n0 = RAK.roi_align_cuda.launches
+    got = RA.roi_align_fpn(fmaps, boxes, torch.zeros_like(valid))[0]
+    torch.cuda.synchronize()
+    assert RAK.roi_align_cuda.launches == n0 + 1 and (got == 0).all()
+    empty = RA.roi_align_fpn(fmaps, boxes[:, :0].contiguous(), valid[:, :0].contiguous())[0]
+    assert empty.shape == (2, 0, 7, 7, 256) and RAK.roi_align_cuda.launches == n0 + 1
+    lv = RA.assign_fpn_levels(boxes).to(torch.int32)
+    with pytest.raises(ValueError):                     # int64 levels
+        RAK.roi_align_cuda(fmaps, boxes, lv.long(), valid, RA.STRIDES)
+    with pytest.raises(ValueError):                     # NCHW-strided level
+        RAK.roi_align_cuda([fmaps[0].permute(0, 3, 1, 2).permute(0, 2, 3, 1)[:, :, ::2]]
+                           + fmaps[1:], boxes, lv, valid, RA.STRIDES)
+    with pytest.raises(ValueError):                     # float16 levels
+        RAK.roi_align_cuda([f.half() for f in fmaps], boxes, lv, valid, RA.STRIDES)

@@ -125,11 +125,10 @@ def test_out_of_slice_requests_raise(tmp_path):
 
     video = tmp_path / "v.mp4"
     video.write_bytes(b"")
-    for kw in (dict(mode="full", style="live", det_model="mtcnn", enc_model="vit_l"),
-               dict(mode="full", style="anime"),                # anime default: rcnn
-               dict(mode="grouping", style="anime"),            # anime default: vit_b
-               dict(mode="detection", style="live"),            # live default: yolo
-               dict(mode="detection", style="anime"),
+    for kw in (dict(mode="full", style="live"),                  # live default: yolo
+               dict(mode="detection", style="live"),
+               dict(mode="full", style="live", enc_model="vit_b"),
+               dict(mode="detection", style="anime", det_model="yolo"),
                dict(mode="detection", style="live", det_model="yolo")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             video_to_faces(input_path=str(video), out_dir=str(tmp_path), device="cpu", **kw)

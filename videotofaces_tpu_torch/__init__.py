@@ -3,13 +3,16 @@
 Same public contract as the JAX package (``video_to_faces`` and the CLI),
 running on one NVIDIA GPU; the hot kernels are hand-written CUDA C++ for
 Hopper (``csrc/``). The port grows slice by slice (ROADMAP.md): it runs the
-live-action path end to end — detection with the MTCNN detector, FaceNet
-embeddings, embedding dedup and K-means grouping or reference
-classification (``mode="full" | "detection" | "grouping"``).
+anime path (Faster R-CNN + ViT, the API's defaults) and the live-action path
+with the MTCNN detector and FaceNet end to end — detection, embeddings,
+embedding dedup and K-means grouping or reference classification
+(``mode="full" | "detection" | "grouping"``). The YOLO detector is not
+ported yet.
 
-Pipeline: host video decode -> batched on-device MTCNN cascade -> box
-filter/expand/square -> crop & save -> hash dedup -> FaceNet embeddings ->
-embedding dedup -> K-means with silhouette selection (or classification).
+Pipeline: host video decode -> batched on-device detector (Faster R-CNN or
+the MTCNN cascade) -> box filter/expand/square -> crop & save -> hash dedup
+-> ViT or FaceNet embeddings -> embedding dedup -> K-means with silhouette
+selection (or classification).
 """
 
 from .api import video_to_faces  # noqa: F401

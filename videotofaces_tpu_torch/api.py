@@ -9,10 +9,11 @@ small private runner. ``device`` is real here: None means the CUDA card
 (and raises without one), ``"cpu"`` runs the plain versions of the kernels
 on the CPU.
 
-The port runs the MTCNN detector and the FaceNet encoders; the YOLO / Faster
-R-CNN detectors and the ViT encoders (and with them the per-style defaults
-that name them) raise ``NotImplementedError`` naming the ROADMAP.md item
-that ports them. The JAX package's multi-host sharding is not ported.
+The port runs the Faster R-CNN and MTCNN detectors and the ViT and FaceNet
+encoders, so the defaults (``style="anime"``: Faster R-CNN + ViT-B16) run;
+the YOLO detector (and with it ``style="live"``'s default detector) raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it. The JAX
+package's multi-host sharding is not ported.
 """
 
 import os.path as osp
@@ -109,7 +110,7 @@ def video_to_faces(input_path=None, input_ext=None,
 
     detecting = mode in ('full', 'detection')
     grouping = mode in ('full', 'grouping')
-    # models this port has not ported raise before anything runs
+    # a model the port has not ported (YOLO) raises before anything runs
     if detecting:
         det_model = resolve_det_model(style, det_model)
     if grouping:

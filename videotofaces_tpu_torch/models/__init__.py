@@ -1,3 +1,4 @@
 """Models: the MTCNN detector (PNet / RNet / ONet ``nn.Module``s and the
-cascade) and the FaceNet encoder (InceptionResnetV1); NCHW, float32
+cascade), the Faster R-CNN detector (ResNet-50 + FPN + RPN + RoI head), the
+FaceNet encoder (InceptionResnetV1) and the ViT encoder; NCHW, float32
 params."""

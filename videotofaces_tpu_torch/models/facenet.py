@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.weights import facenet_from_jax
-from .layers import ConvUnit
+from .layers import ConvUnit, init_uniform_fan_in_
 
 
 def cu(cin, cout, k, s=1, p=0):
@@ -163,16 +163,7 @@ class InceptionResnetV1(nn.Module):
         """Random weights from an explicit ``torch.Generator``: conv and
         dense weights and biases uniform in +-1/sqrt(fan_in) (torch's
         default ranges); BatchNorm scale 1, bias 0, mean 0, var 1."""
-        model = cls()
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for mod in model.modules():
-                if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                    bound = 1.0 / float(mod.weight[0].numel()) ** 0.5
-                    for p in (mod.weight, mod.bias):
-                        if p is not None:
-                            p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)
-        return model
+        return init_uniform_fan_in_(cls(), seed)
 
 
 def preprocess_uint8(images_u8_rgb):

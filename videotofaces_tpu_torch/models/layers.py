@@ -1,8 +1,11 @@
 """Shared building blocks (counterpart of videotofaces_tpu/models/layers.py,
-the parts MTCNN and FaceNet use). Maps are NCHW. The JAX package's
-``max_pool2d`` is ``F.max_pool2d`` here (with ``ceil_mode=True`` for MTCNN:
-the last window may run off the edge and takes the max over what is
-inside)."""
+the parts MTCNN, FaceNet, ResNet/Faster R-CNN and ViT use). Maps are NCHW.
+The JAX package's ``max_pool2d`` is ``F.max_pool2d`` here (with
+``ceil_mode=True`` for MTCNN: the last window may run off the edge and takes
+the max over what is inside; -inf padding for the ResNet stem).
+``init_uniform_fan_in_`` gives every model its seeded random weights."""
+
+import math
 
 import torch
 from torch import nn
@@ -35,25 +38,54 @@ class PConv(nn.Module):
 
 
 class ConvUnit(nn.Module):
-    """Conv2d (no bias) + inference BatchNorm [+ residual add] [+ ReLU] — the
-    JAX package's ``ConvUnit`` as the port's models use it.
+    """Conv2d + inference BatchNorm [+ residual add] [+ ReLU] — the JAX
+    package's ``ConvUnit`` as the port's models use it. With ``bn_eps=None``
+    there is no BatchNorm and the convolution has a bias (the FPN laterals
+    and smooths and the RPN conv).
 
     BatchNorm is ``nn.BatchNorm2d`` in eval mode, ``(x - mean) /
     sqrt(var + eps) * scale + bias`` on the running statistics; it is kept
     apart from the convolution (folding it in would change the rounding).
-    Parameter names follow the JAX tree: ``conv.weight``,
+    Parameter names follow the JAX tree: ``conv.{weight, bias}``,
     ``bn.{weight, bias, running_mean, running_var}``."""
 
     def __init__(self, cin, cout, k, s=1, p=0, activ=None, bn_eps=1e-5):
         super().__init__()
         if activ not in (None, "relu"):
             raise ValueError(f"unsupported activation {activ!r}")
-        self.conv = nn.Conv2d(cin, cout, k, s, p, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=bn_eps)
+        self.conv = nn.Conv2d(cin, cout, k, s, p, bias=bn_eps is None)
+        self.bn = None if bn_eps is None else nn.BatchNorm2d(cout, eps=bn_eps)
         self.activ = activ
 
     def forward(self, x, add=None):
-        x = self.bn(self.conv(x))
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
         if add is not None:
             x = x + add
         return torch.relu(x) if self.activ == "relu" else x
+
+
+def init_uniform_fan_in_(model, seed):
+    """Random weights from an explicit ``torch.Generator`` seeded with
+    ``seed``: every conv and dense weight and bias uniform in
+    +-1/sqrt(fan_in) (torch's default ranges), in module order; every other
+    parameter and buffer keeps its constructor value. Returns ``model``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Conv2d, nn.Linear)):
+                bound = 1.0 / math.sqrt(mod.weight[0].numel())
+                for p in (mod.weight, mod.bias):
+                    if p is not None:
+                        p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)
+    return model
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis, eps 1e-12 by default (the ViT's):
+    ``(x - mean) / sqrt(var + eps) * weight + bias``; the JAX tree's
+    ``scale`` is ``weight`` here."""
+
+    def __init__(self, features, eps=1e-12):
+        super().__init__(features, eps=eps)

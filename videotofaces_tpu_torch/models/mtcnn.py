@@ -26,7 +26,6 @@ Deliberate differences from the JAX ``full_forward``:
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,7 +34,7 @@ from ..ops.crops_kernel import pool_crops
 from ..ops.nms import iom_chain_suppress, nms_keep_mask_bucketed, topk_by_score
 from ..ops.pnet_kernel import pack_weights, pnet_level
 from ..utils.weights import mtcnn_from_jax
-from .layers import PConv, PReLU
+from .layers import PConv, PReLU, init_uniform_fan_in_
 
 
 def _flatten_whc(x):
@@ -130,15 +129,7 @@ class MTCNN(nn.Module):
         """Random weights from an explicit ``torch.Generator``: conv/dense
         weights and biases uniform in +-1/sqrt(fan_in) (torch's default
         ranges), PReLU slopes 0.25."""
-        model = cls()
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for mod in model.modules():
-                if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                    bound = 1.0 / np.sqrt(mod.weight[0].numel())
-                    for p in (mod.weight, mod.bias):
-                        p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)
-        return model
+        return init_uniform_fan_in_(cls(), seed)
 
 
 @dataclass(frozen=True)

@@ -1,10 +1,10 @@
 """User-facing model wrappers (counterpart of
-videotofaces_tpu/models/wrappers.py; the port has the MTCNN detector and the
-FaceNet encoder so far).
+videotofaces_tpu/models/wrappers.py): the MTCNN and Faster R-CNN detectors
+and the FaceNet and ViT encoders (the YOLO detector is not ported yet).
 
 Weights resolution: converted .npz checkpoints from <repo>/weights, in the
 JAX package's layout (see tools/convert_weights.py), turned into the
-modules' state dicts by ``utils/weights.{mtcnn,facenet}_from_jax``. When a
+modules' state dicts by ``utils/weights.*_from_jax``. When a
 checkpoint is absent, the wrapper falls back to seeded random weights (an
 explicit ``torch.Generator``) with a loud note — every compute path still
 runs, only the predictions are untrained.
@@ -29,6 +29,14 @@ def _resolve_checkpoint(checkpoint):
     print("NOTE: no converted weights at %s — using seeded random init "
           "(run tools/convert_weights.py with the torch checkpoint for real weights)" % path)
     return None
+
+
+def _to_pinned(t):
+    """Start a non-blocking copy of a device tensor into pinned host memory
+    on the current stream; the caller waits on an event recorded after."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
 
 
 def pad_batch(frames, batch_size):
@@ -88,15 +96,9 @@ class MtcnnDetector:
                                       compute_dtype=self.compute_dtype)
         if not cuda:
             return (out, None), n
-
-        def to_host(t):
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            return host
-
         boxes, scores, lmk, valid, counts = out
-        host = (to_host(boxes), to_host(scores), to_host(lmk), to_host(valid),
-                {k: to_host(v) for k, v in counts.items()})
+        host = (_to_pinned(boxes), _to_pinned(scores), _to_pinned(lmk), _to_pinned(valid),
+                {k: _to_pinned(v) for k, v in counts.items()})
         done = torch.cuda.Event()
         done.record()
         return (host, done), n
@@ -134,6 +136,147 @@ class MtcnnDetector:
 
     def __call__(self, frames, return_landmarks=False):
         return self.collect(self.submit(frames), return_landmarks)
+
+
+class _BoxDetectorBase:
+    """Shared submit / collect for detectors whose forward returns (boxes,
+    scores, classes, valid, select_overflow, roi_dropped, roi_truncated)
+    (models/wrappers.py:86-153 of the JAX package). Subclasses provide
+    ``_name``, ``_resized_hw(h, w)`` and ``_forward(x_u8, h, w)``."""
+
+    def _resized_hw(self, h, w):
+        raise NotImplementedError
+
+    def _forward(self, x, h, w):
+        raise NotImplementedError
+
+    def submit(self, frames):
+        """Start a batch: optional host cv2 resize, padding to the batch
+        size, a non-blocking copy to the card from a pinned buffer, the
+        forward on the current stream, and the results' copies back into
+        pinned buffers; ``collect`` waits for them."""
+        frames = list(frames)
+        h, w = frames[0].shape[:2]
+        if self.host_resize:
+            import cv2
+
+            nh, nw = self._resized_hw(h, w)
+            frames = [cv2.resize(f, (nw, nh), interpolation=cv2.INTER_LINEAR)
+                      for f in frames]
+        arr, n = pad_batch(frames, self.batch_size or len(frames))
+        x = torch.from_numpy(arr)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            x = x.pin_memory().to(self.device, non_blocking=True)
+        with torch.inference_mode():
+            out = self._forward(x, h, w)
+        if not cuda:
+            return (out, None), n
+        host = tuple(_to_pinned(t) for t in out)
+        done = torch.cuda.Event()
+        done.record()
+        return (host, done), n
+
+    def collect(self, handle):
+        """Wait for a batch; returns per-image (boxes [n, 4], scores [n],
+        classes [n]) numpy lists, and warns when a capacity counter is set."""
+        (out, done), n = handle
+        if done is not None:
+            done.synchronize()
+        boxes, scores, classes, valid, overflow, dropped, truncated = (
+            t.numpy() for t in out)
+        of = int(overflow.max())
+        if of > 0:
+            print("WARNING: %s RPN two-pass NMS may have displaced up to %d "
+                  "proposal(s) per image (batch max; dense detections); run in "
+                  "precision 'highest' for the exact NMS." % (self._name, of))
+        dr = int(dropped.max())
+        if dr > 0:
+            print("WARNING: %s RoIAlign dropped up to %d roi(s) per image "
+                  "(batch max)." % (self._name, dr))
+        tr = int(truncated.max())
+        if tr > 0:
+            print("WARNING: %s RoIAlign ran up to %d roi(s) per image (batch max) "
+                  "with a truncated sampling window." % (self._name, tr))
+        out_b, out_s, out_c = [], [], []
+        for i in range(n):
+            v = valid[i]
+            out_b.append(boxes[i][v])
+            out_s.append(scores[i][v])
+            out_c.append(classes[i][v])
+        return out_b, out_s, out_c
+
+    def __call__(self, frames):
+        return self.collect(self.submit(frames))
+
+
+class FrcnnDetector(_BoxDetectorBase):
+    """Anime face detector; reference API parity with AnimeFRCNN
+    (rcnn.py:154-177): __call__(list of BGR frames) -> (boxes, scores,
+    classes) as per-image numpy lists.
+
+    ``device``: None means the CUDA card and raises when there is none;
+    ``"cpu"`` runs the plain RoIAlign on the CPU. ``params``: the JAX
+    package's {"body", "head"} tree (numpy arrays), used instead of a
+    checkpoint. ``bf16``: parameters and the network in bfloat16 with the
+    uint8-canvas preprocess, as the JAX detector's flag. ``roi_method`` is
+    accepted for compatibility with the JAX package; whatever it says, the
+    RoIAlign runs through the CUDA kernel K4 on the card (it computes the
+    dense method's function, with no buckets and no window)."""
+
+    _name = "FasterRCNN"
+
+    def __init__(self, device=None, checkpoint="frcnn_anime", batch_size=None,
+                 params=None, resize_spec=(800, 1333), proposal_cap=1000, out_top=100,
+                 host_resize=False, bf16=False, roi_method=None):
+        from . import rcnn as R
+
+        print("Initializing FasterRCNN model for anime face detection")
+        if roi_method not in _ROI_METHODS:
+            raise ValueError("unknown roi_method %r (valid: %s)" % (roi_method, _ROI_METHODS))
+        self.device = config.resolve_device(device)
+        self.R = R
+        self.resize_spec = resize_spec
+        self.host_resize = host_resize
+        self.compute_dtype = torch.bfloat16 if bf16 else None
+        self.proposal_cap = proposal_cap
+        self.out_top = out_top
+        self.batch_size = batch_size
+        self.roi_method = roi_method
+        if params is None:
+            params = _resolve_checkpoint(checkpoint)
+        model = R.AnimeFRCNN.seeded(0) if params is None else R.AnimeFRCNN.from_jax(params)
+        if bf16:
+            model = model.to(torch.bfloat16)
+        self.model = model.to(self.device).eval()
+        self._priors = {}
+
+    def _resized_hw(self, h, w):
+        return self.R.resized_shape(h, w, *self.resize_spec)
+
+    def _geometry(self, h, w):
+        """(resized size, canvas, per-level priors on the device) of an
+        h x w frame, computed once per frame size."""
+        if (h, w) not in self._priors:
+            from ..ops.anchors import get_priors
+
+            nh, nw = self._resized_hw(h, w)
+            canvas = self.R.canvas_shape(nh, nw)
+            priors = [torch.from_numpy(p).to(self.device) for p in get_priors(
+                canvas, self.R.frcnn_bases(), loc="corner", concat=False)]
+            self._priors[(h, w)] = ((nh, nw), canvas, priors)
+        return self._priors[(h, w)]
+
+    def _forward(self, x, h, w):
+        resized, canvas, priors = self._geometry(h, w)
+        return self.R.full_forward(self.model, x, resized, canvas, priors,
+                                   out_top=self.out_top, proposal_cap=self.proposal_cap,
+                                   orig_hw=(h, w) if self.host_resize else None,
+                                   compute_dtype=self.compute_dtype)
+
+
+# the JAX package's RoIAlign formulations; every one runs through K4 here
+_ROI_METHODS = (None, "dense", "sorted", "slice", "gather", "pallas", "pallas-interpret")
 
 
 class _Encoder:
@@ -216,3 +359,22 @@ class FaceNetEncoder(_Encoder):
                  else FN.InceptionResnetV1.from_jax(params))
         # facenet.py:179 affine: (x - 127.5) / 128
         super().__init__(model, 160, FN.preprocess_uint8, 1 / 128.0, 127.5, device, **kw)
+
+
+class VitEncoder(_Encoder):
+    """Anime face embedder; parity with AnimeVIT (vit.py:105-146): ViT-B16,
+    or ViT-L16 with ``large``, on 128 px crops normalized by (x - 127.5) /
+    127.5. ``params``: the JAX package's ViT parameter tree (numpy arrays),
+    used instead of a checkpoint."""
+
+    def __init__(self, device=None, large=False, params=None, **kw):
+        from . import vit as V
+
+        src = "L16" if large else "B16"
+        print("Initializing ViT %s model for anime face encoding" % src)
+        arch = V.L16 if large else V.B16
+        if params is None:
+            params = _resolve_checkpoint("vit_anime_" + src.lower())
+        model = V.ViT.seeded(0, **arch) if params is None else V.ViT.from_jax(params, **arch)
+        # vit.py:141 affine: (x - 127.5) / 127.5
+        super().__init__(model, 128, V.preprocess_uint8, 1 / 127.5, 127.5, device, **kw)

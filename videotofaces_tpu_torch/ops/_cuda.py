@@ -18,7 +18,7 @@ import subprocess
 import threading
 import time
 
-SOURCES = ("pnet_level.cu", "pool_crops.cu", "resize_normalize.cu")
+SOURCES = ("pnet_level.cu", "pool_crops.cu", "resize_normalize.cu", "roi_align.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,6 +3,39 @@
 import torch
 
 
+def decode_boxes(pred, priors, mults=(1.0, 1.0)):
+    """R-CNN regression outputs -> (x1, y1, x2, y2) boxes around (cx, cy, w, h)
+    priors (Eq. 1-4, ``mode="rcnn"`` of the JAX op), with variance
+    multipliers ``mults``. pred / priors: [..., 4]. Reference behaviour:
+    operations/bbox.py:6-34."""
+    mult_xy, mult_wh = mults
+    xys = priors[..., 2:] * mult_xy * pred[..., :2] + priors[..., :2]
+    whs = priors[..., 2:] * torch.exp(mult_wh * pred[..., 2:])
+    return torch.cat([xys - whs * 0.5, xys + whs * 0.5], dim=-1)
+
+
+def convert_to_cwh(boxes):
+    """(x1, y1, x2, y2) -> (cx, cy, w, h). Reference: operations/bbox.py:37-42."""
+    wh = boxes[..., 2:] - boxes[..., :2]
+    return torch.cat([boxes[..., :2] + wh * 0.5, wh], dim=-1)
+
+
+def clamp_to_canvas(boxes, sizes_hw):
+    """Clamp boxes [..., 4] into canvases ``sizes_hw`` [..., 2] (h, w),
+    broadcastable against the boxes' leading dims (operations/bbox.py:45-49)."""
+    wh = sizes_hw.flip(-1)
+    mx = torch.cat([wh, wh], dim=-1)
+    return torch.minimum(torch.clamp(boxes, min=0.0), mx)
+
+
+def small_boxes_mask(boxes, min_size=0.0):
+    """True for boxes whose width AND height exceed ``min_size`` (the mask
+    form of the reference's ``remove_small``, operations/bbox.py:52-60)."""
+    ws = boxes[..., 2] - boxes[..., 0]
+    hs = boxes[..., 3] - boxes[..., 1]
+    return (ws > min_size) & (hs > min_size)
+
+
 def box_iou_matrix(boxes_a, boxes_b, plus_one=False, mode="iou"):
     """Pairwise IoU (or intersection-over-minimum, ``mode="iom"``) matrix:
     [..., Na, Nb].

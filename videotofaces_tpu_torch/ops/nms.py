@@ -1,5 +1,5 @@
 """Fixed-capacity NMS on padded buffers (counterpart of
-videotofaces_tpu/ops/nms.py, the parts MTCNN uses).
+videotofaces_tpu/ops/nms.py, the parts MTCNN and Faster R-CNN use).
 
 Every candidate set is a fixed-size buffer with a validity mask; NMS returns
 a keep mask and selection returns a top-k gather, as in the JAX package.
@@ -29,13 +29,17 @@ def _masked(scores, valid):
     return torch.where(valid, scores, torch.full_like(scores, float("-inf")))
 
 
-def _fixpoint_presorted(boxes, valid, iou_thr, plus_one=False, mode="iou"):
+def _fixpoint_presorted(boxes, valid, iou_thr, plus_one=False, mode="iou",
+                        group_ids=None):
     """Greedy keep mask for [B, K, 4] boxes ALREADY in descending score
-    order; returns [B, K] bool in that order."""
+    order; returns [B, K] bool in that order. With ``group_ids`` [B, K],
+    only boxes of the same group suppress each other."""
     k = boxes.shape[-2]
     iou = box_iou_matrix(boxes, boxes, plus_one=plus_one, mode=mode)
     later = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
     suppresses = (iou > iou_thr) & later          # [.., j, i]: j (if kept) kills i
+    if group_ids is not None:
+        suppresses = suppresses & (group_ids[..., :, None] == group_ids[..., None, :])
     keep = valid
     for _ in range(k):
         killed = torch.any(suppresses & keep[..., :, None], dim=-2)
@@ -46,16 +50,20 @@ def _fixpoint_presorted(boxes, valid, iou_thr, plus_one=False, mode="iou"):
     return keep
 
 
-def nms_keep_mask(boxes, scores, valid, iou_thr, plus_one=False, mode="iou",
-                  presorted=False):
+def nms_keep_mask(boxes, scores, valid, iou_thr, group_ids=None, plus_one=False,
+                  mode="iou", presorted=False):
     """Greedy NMS over a padded buffer: boxes [..., K, 4], scores [..., K],
-    valid [..., K] bool. Returns the keep mask in input order."""
+    valid [..., K] bool, group_ids [..., K] int or None. Suppression happens
+    only within a group (torchvision ``batched_nms`` semantics, the same as
+    independent per-group NMS). Returns the keep mask in input order."""
     if presorted:
-        return _fixpoint_presorted(boxes, valid, iou_thr, plus_one, mode)
+        return _fixpoint_presorted(boxes, valid, iou_thr, plus_one, mode, group_ids)
     _, order = _sort_desc(_masked(scores, valid))
     sb = torch.gather(boxes, -2, order[..., None].expand(boxes.shape))
     sv = torch.gather(valid, -1, order)
-    keep_sorted = _fixpoint_presorted(sb, sv, iou_thr, plus_one, mode)
+    sg = None if group_ids is None else torch.gather(
+        group_ids.expand(valid.shape), -1, order)
+    keep_sorted = _fixpoint_presorted(sb, sv, iou_thr, plus_one, mode, sg)
     return torch.zeros_like(valid).scatter(-1, order, keep_sorted)
 
 
@@ -67,7 +75,7 @@ def nms_keep_mask_bucketed(boxes, scores, valid, iou_thr, bucket=256,
     neither kept nor suppress anything."""
     k = scores.shape[1]
     if k <= bucket:
-        return nms_keep_mask(boxes, scores, valid, iou_thr, plus_one, mode)
+        return nms_keep_mask(boxes, scores, valid, iou_thr, None, plus_one, mode)
     _, order = _sort_desc(_masked(scores, valid), dim=1)
     sb = torch.gather(boxes, 1, order[..., None].expand(boxes.shape))
     sv = torch.gather(valid, 1, order)

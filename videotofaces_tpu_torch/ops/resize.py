@@ -10,6 +10,10 @@ These functions are the plain versions the CUDA kernels are held against
 (``ops/pnet_kernel.py`` pools the pyramid levels, ``ops/crops_kernel.py`` the
 crops) and the CPU path of the cascade. The JAX package's phase-split, s2d
 and matmul pool variants are TPU layouts and have no counterpart here.
+
+Also here: the Faster R-CNN preprocess resize, ``bilinear_resize_matmul``,
+two interpolation-matrix products (XLA computes them in the JAX package; no
+Pallas kernel is involved).
 """
 
 import functools
@@ -105,3 +109,36 @@ def adaptive_pool_boxes_batched(ii, boxes_xyxy, imgidx, out_size):
 def normalize(avg):
     """MTCNN input normalization of window averages: (x - 127.5) / 128."""
     return (avg - 127.5) / 128.0
+
+
+@functools.lru_cache(maxsize=None)
+def _bilinear_matrix(in_size: int, out_size: int):
+    """[out, in] half-pixel bilinear interpolation matrix (cv2 INTER_LINEAR /
+    torch align_corners=False semantics, edge-clamped), float32 numpy."""
+    src = (np.arange(out_size) + 0.5) * in_size / out_size - 0.5
+    src = np.clip(src, 0.0, in_size - 1.0)
+    i = np.arange(in_size)[None, :]
+    w = np.maximum(0.0, 1.0 - np.abs(src[:, None] - i))
+    return w.astype(np.float32)
+
+
+def bilinear_resize_matmul(x, out_hw, canvas_hw=None):
+    """Half-pixel bilinear resize of [..., H, W, C] as two matrix products,
+    float32 out. ``canvas_hw`` (>= out_hw) zero-pads the interpolation
+    matrices, so the result lands on a [canvas_h, canvas_w] zero canvas (the
+    detector's pad to a multiple of 32 comes out of the second product).
+    The products follow the precision policy (TF32 allowed outside
+    "highest")."""
+    h, w = x.shape[-3], x.shape[-2]
+    oh, ow = out_hw
+    wh = _bilinear_matrix(h, oh)
+    ww = _bilinear_matrix(w, ow)
+    if canvas_hw is not None:
+        ch, cw = canvas_hw
+        wh = np.pad(wh, ((0, ch - oh), (0, 0)))
+        ww = np.pad(ww, ((0, cw - ow), (0, 0)))
+    wh = torch.from_numpy(wh).to(x.device)
+    ww = torch.from_numpy(ww).to(x.device)
+    x = x.to(torch.float32)
+    x = torch.einsum("oh,...hwc->...owc", wh, x)
+    return torch.einsum("pw,...owc->...opc", ww, x)

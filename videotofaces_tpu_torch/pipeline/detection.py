@@ -31,31 +31,32 @@ from . import boxfilter as BF
 from .dupes import remove_dupes_nearest, remove_dupes_overall
 
 # detectors of later slices, and the ROADMAP.md item that ports each
-_LATER = {"yolo": "queue 1, item 8 (YOLOv3)",
-          "rcnn": "queue 1, item 7 (Faster R-CNN)"}
+_LATER = {"yolo": "queue 1, item 8 (YOLOv3)"}
 
 
 def resolve_det_model(style, det_model):
     """The detector name ``det_model`` stands for ("default" picks per
-    style); raises for detectors this slice has not ported."""
+    style); raises for detectors the port has not ported."""
     if det_model == "default":
         det_model = "rcnn" if style == "anime" else "yolo"
     if det_model in _LATER:
         raise NotImplementedError(
             "det_model=%r is not ported to videotofaces_tpu_torch yet "
-            "(ROADMAP.md %s); use det_model='mtcnn'" % (det_model, _LATER[det_model]))
-    if det_model != "mtcnn":
+            "(ROADMAP.md %s); use det_model='mtcnn' or 'rcnn'"
+            % (det_model, _LATER[det_model]))
+    if det_model not in ("mtcnn", "rcnn"):
         raise ValueError("unknown det_model %r (valid: default, yolo, rcnn, mtcnn)"
                          % (det_model,))
     return det_model
 
 
 def get_detector_model(style, det_model, device=None, **model_kw):
-    """String-dispatch model factory (reference detection.py:22-29). This
-    slice ports the MTCNN detector; the others raise."""
-    from ..models.wrappers import MtcnnDetector
+    """String-dispatch model factory (reference detection.py:22-29): the
+    Faster R-CNN or the MTCNN detector; YOLO raises."""
+    from ..models.wrappers import FrcnnDetector, MtcnnDetector
 
-    resolve_det_model(style, det_model)
+    if resolve_det_model(style, det_model) == "rcnn":
+        return FrcnnDetector(device, **model_kw)
     return MtcnnDetector(device, **model_kw)
 
 
@@ -183,10 +184,14 @@ def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=No
 def process_frames_batch(frames, indices, detout, criteria, layout, hash_thr,
                          hashes, writer, crops=None):
     """Host post-processing for one batch. ``detout`` is the detector output:
-    a list of [n, 5] (x1, y1, x2, y2, score) arrays, one per frame."""
+    a (boxes, scores, classes) tuple of per-frame lists (Faster R-CNN), or a
+    list of [n, 5] (x1, y1, x2, y2, score) arrays, one per frame (MTCNN)."""
     img_size = frames[0].shape[:2]
-    boxes_list = [d[:, :4] for d in detout]
-    scores_list = [d[:, 4] for d in detout]
+    if isinstance(detout, tuple):
+        boxes_list, scores_list = detout[0], detout[1]
+    else:
+        boxes_list = [d[:, :4] for d in detout]
+        scores_list = [d[:, 4] for d in detout]
 
     faces = []
     for frame, frame_idx, raw_boxes, raw_scores in zip(frames, indices, boxes_list, scores_list):

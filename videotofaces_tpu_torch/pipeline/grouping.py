@@ -36,33 +36,31 @@ from ..utils.image import crop_to_area
 from ..utils.pbar import tqdm
 from ..utils.profiling import StageTimer, trace
 
-# encoders of later slices, and the ROADMAP.md item that ports each
-_VIT_ITEM = "queue 1, item 9 (ViT-B/L16)"
+_ENCODERS = ("facenet_vgg", "facenet_casia", "vit_b", "vit_l")
 
 
 def resolve_enc_model(style, enc_model):
     """The encoder name ``enc_model`` stands for ("default" picks per
-    style); raises for encoders the port has not ported."""
+    style); raises for an unknown name."""
     if enc_model == "default":
         enc_model = "vit_b" if style == "anime" else "facenet_vgg"
-    if enc_model.startswith("vit"):
-        raise NotImplementedError(
-            "enc_model=%r is not ported to videotofaces_tpu_torch yet (ROADMAP.md %s); "
-            "use enc_model='facenet_vgg' or 'facenet_casia'" % (enc_model, _VIT_ITEM))
-    if enc_model not in ("facenet_vgg", "facenet_casia"):
+    if enc_model not in _ENCODERS:
         raise ValueError("unknown enc_model %r (valid: default, facenet_vgg, "
                          "facenet_casia, vit_b, vit_l)" % (enc_model,))
     return enc_model
 
 
 def get_encoder_model(style, enc_model, device=None, **model_kw):
-    """String-dispatch encoder factory (reference grouping.py:19-26).
-    ``model_kw`` (``params``, ``batch_size``, ``device_resize``,
-    ``pack_size``) go to the encoder."""
-    from ..models.wrappers import FaceNetEncoder
+    """String-dispatch encoder factory (reference grouping.py:19-26): FaceNet
+    (VGGFace2 or CASIA weights) or ViT (B16 or L16). ``model_kw``
+    (``params``, ``batch_size``, ``device_resize``, ``pack_size``) go to the
+    encoder."""
+    from ..models.wrappers import FaceNetEncoder, VitEncoder
 
-    casia = resolve_enc_model(style, enc_model) == "facenet_casia"
-    return FaceNetEncoder(device, casia, **model_kw)
+    name = resolve_enc_model(style, enc_model)
+    if name.startswith("vit"):
+        return VitEncoder(device, name == "vit_l", **model_kw)
+    return FaceNetEncoder(device, name == "facenet_casia", **model_kw)
 
 
 def _batched(seq, size):

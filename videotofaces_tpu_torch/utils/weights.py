@@ -3,8 +3,8 @@
 Converted checkpoints live in ``<repo>/weights/*.npz`` as flat "a/b/c" keys in
 the JAX package's layout (HWIO conv kernels, [in, out] dense kernels — see
 tools/convert_weights.py). The port reads the same files and turns the nested
-numpy tree into ``state_dict``s for its ``nn.Module``s with ``mtcnn_from_jax``
-and ``facenet_from_jax``.
+numpy tree into ``state_dict``s for its ``nn.Module``s with ``mtcnn_from_jax``,
+``facenet_from_jax``, ``frcnn_from_jax`` and ``vit_from_jax``.
 """
 
 import os
@@ -99,6 +99,20 @@ _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
              "var": "running_var"}
 
 
+def _with_bn_names(sd, bn_parents):
+    """Rename BatchNorm leaves {scale, bias, mean, var} under a parent named
+    in ``bn_parents`` to {weight, bias, running_mean, running_var}, adding a
+    zero ``num_batches_tracked``."""
+    out = {}
+    for key, val in sd.items():
+        parts = key.split(".")
+        if len(parts) > 1 and parts[-2] in bn_parents:
+            parts[-1] = _BN_NAMES[parts[-1]]
+            out[".".join(parts[:-1] + ["num_batches_tracked"])] = torch.tensor(0)
+        out[".".join(parts)] = val
+    return out
+
+
 def facenet_from_jax(params_np):
     """The JAX package's InceptionResnetV1 parameter tree (numpy arrays) ->
     the port's ``state_dict``: ``*/conv/kernel`` HWIO -> OIHW, the residual
@@ -106,14 +120,7 @@ def facenet_from_jax(params_np):
     -> [512, 1792], and every BatchNorm (``*/bn``, ``head_bn``)
     ``{scale, bias, mean, var}`` -> ``{weight, bias, running_mean,
     running_var}`` plus a zero ``num_batches_tracked``."""
-    sd = {}
-    for key, val in jax_to_state_dict(params_np).items():
-        parts = key.split(".")
-        if parts[-2] in ("bn", "head_bn"):
-            parts[-1] = _BN_NAMES[parts[-1]]
-            sd[".".join(parts[:-1] + ["num_batches_tracked"])] = torch.tensor(0)
-        sd[".".join(parts)] = val
-    return sd
+    return _with_bn_names(jax_to_state_dict(params_np), ("bn", "head_bn"))
 
 
 def mtcnn_from_jax(params_np):
@@ -123,3 +130,31 @@ def mtcnn_from_jax(params_np):
     weights carry over with the plain transpose."""
     return {net: jax_to_state_dict(params_np[net])
             for net in ("pnet", "rnet", "onet")}
+
+
+def frcnn_from_jax(params_np):
+    """The JAX package's Faster R-CNN tree {"body", "head"} (numpy arrays) ->
+    the port's ``{"body", "head"}`` state dicts. The anonymous ``ResNet_0``
+    backbone becomes ``backbone``; the FPN's and the RPN's convolutions
+    carry their biases; the RoI head's ``fc0`` consumes the pooled maps
+    flattened in (7, 7, C) order on both sides, so its kernel carries over
+    with the plain transpose."""
+    body = {}
+    for key, val in _with_bn_names(jax_to_state_dict(params_np["body"]), ("bn",)).items():
+        if key.startswith("ResNet_0."):
+            key = "backbone." + key[len("ResNet_0."):]
+        body[key] = val
+    return {"body": body, "head": jax_to_state_dict(params_np["head"])}
+
+
+def vit_from_jax(params_np):
+    """The JAX package's ViT tree (numpy arrays) -> the port's ``state_dict``:
+    ``patch_embedding`` HWIO -> OIHW, dense kernels transposed, every
+    LayerNorm ``scale`` -> ``weight``; ``class_token`` and
+    ``pos_embedding`` as they are."""
+    sd = {}
+    for key, val in jax_to_state_dict(params_np).items():
+        if key.endswith(".scale"):
+            key = key[:-len("scale")] + "weight"
+        sd[key] = val
+    return sd
