@@ -8,7 +8,10 @@ any failed, printing no result line):
 
 1. the card: name, count, and ``nvidia-smi`` name + power limit;
 2. build every CUDA kernel of the path from ``videotofaces_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel);
+   (one ``nvcc`` per source, in parallel), print each kernel's registers,
+   shared memory and spills (``-Xptxas -v``) and count the tensor-core
+   instructions in the PNet kernels' SASS (``cuobjdump -sass``; the bf16
+   kernel must hold some);
 3. each kernel at main-path shapes, held against its plain PyTorch version
    on the same inputs and timed with CUDA events: ``pnet_level`` over the
    whole 16-level pyramid of a batch of 2 1080p frames at min face 5 in
@@ -194,6 +197,7 @@ def check_pnet(got, want, dtype, err):
 def pnet_work(level_hw, b=B, h=H, w=W, dtype="bfloat16"):
     """(bytes, operations) the level's pool + PNet needs: frames read once,
     reg / prob written once; pool adds plus 2 ops per multiply-add."""
+    from videotofaces_tpu_torch.ops.pnet_kernel import NPLAIN
     from videotofaces_tpu_torch.ops.resize import pool_bounds_1d
 
     sh, sw = level_hw
@@ -205,7 +209,7 @@ def pnet_work(level_hw, b=B, h=H, w=W, dtype="bfloat16"):
     pool = int((ye - ys).sum()) * int((xe - xs).sum()) * 3
     macs = ch * cw * 10 * 27 + (qh - 2) * (qw - 2) * 16 * 90 + ph * pw * (32 * 144 + 6 * 32)
     esize = 2 if dtype == "bfloat16" else 4
-    nbytes = b * h * w * 3 + 6632 * 4 + b * ph * pw * (4 * esize + 4)
+    nbytes = b * h * w * 3 + NPLAIN * 4 + b * ph * pw * (4 * esize + 4)
     return nbytes, b * (pool + 2 * macs)
 
 
@@ -241,6 +245,46 @@ def crops_work(slots, out_size, b=B, h=H, w=W):
     adds = int((slots[live, 3].astype(np.int64) * slots[live, 4]).sum()) * 3
     nbytes = int(cover.sum()) * 3 + slots.shape[0] * (out_size * out_size * 3 * 4 + 24)
     return nbytes, adds + slots.shape[0] * out_size * out_size * 3 * 3
+
+
+def ptxas_summary(log_text):
+    """[(kernel, "N registers, M bytes smem", "spills ...")] from one
+    ``nvcc -Xptxas -v`` log."""
+    out, fn, props = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line.strip()
+        elif "Function properties for" in line:
+            props = ""
+        elif "spill" in line:
+            props = line.split(":", 1)[-1].strip()
+        elif "Used" in line and "registers" in line and fn is not None:
+            out.append((fn, line.split("Used", 1)[1].strip(), props))
+            fn = None
+    return out
+
+
+def sass_instruction_counts(so_path):
+    """{kernel: {opcode: count}} of the tensor-core instructions (HMMA,
+    HGMMA) in ``cuobjdump -sass`` of a built library, or None where the
+    toolkit has no cuobjdump."""
+    from videotofaces_tpu_torch.ops import _cuda
+
+    tool = osp.join(osp.dirname(_cuda._nvcc()), "cuobjdump")
+    if not osp.isfile(tool):
+        return None
+    text = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, fn, opcodes = {}, None, ("HMMA", "HGMMA")
+    for line in text.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = {op: 0 for op in opcodes}
+        elif fn is not None:
+            for op in opcodes:
+                if " %s." % op in line or " %s " % op in line:
+                    counts[fn][op] += 1
+    return counts
 
 
 def card_line():
@@ -575,6 +619,7 @@ def main():
     kinds = torch.cuda.get_device_name(0)
     card = card_line()
     kernels = {}
+    sass = None
 
     with phase("1. card"):
         log("torch %s, CUDA %s, python %s" % (torch.__version__, torch.version.cuda,
@@ -585,10 +630,17 @@ def main():
     with phase("2. build"):
         secs = _cuda.build_all()
         log("built %s in %.1f s (wall, parallel nvcc)" % (", ".join(_cuda.SOURCES), secs))
-        for src, info in _cuda.build_log.items():
-            for line in info["ptxas"].splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    log("   %s: %s" % (src, line.strip()))
+        for src in _cuda.SOURCES:
+            for fn, regs, spills in ptxas_summary(_cuda.ptxas_log(src)):
+                log("   %s %s: %s; %s" % (src, fn, regs, spills))
+        sass = sass_instruction_counts(_cuda._target("pnet_level.cu"))
+        if sass is None:
+            log("   cuobjdump not in the toolkit: tensor-core instructions not counted")
+        else:
+            for fn, ops in sass.items():
+                log("   pnet_level.cu SASS %s: %s" % (fn, ops))
+            tc_ops = sum(sum(ops.values()) for fn, ops in sass.items() if "pnet_tc" in fn)
+            assert tc_ops > 0, "the bf16 PNet kernel holds no tensor-core instruction"
 
     frames_np = seeded_frames(7)
     frames = torch.from_numpy(frames_np).to(dev)
@@ -636,6 +688,8 @@ def main():
                      "videotofaces_tpu/ops/pallas_pnet.py:457 (pnet_level)",
             launches=None, max_abs_err=max(err.values()), ms=ms, plain_ms=plain_ms,
             bound_ms=bnd, bound_by=by_all, library_ms=None, max_abs_err_by_output=err,
+            tensor_core_sass=None if sass is None else {
+                fn: ops for fn, ops in sass.items() if "pnet_tc" in fn},
             tol={"prob": TOLS["bfloat16"], "reg": dict(rtol=TOLS["bfloat16"]["rtol"],
                                                        atol="%g x max|reg|"
                                                        % TOLS["bfloat16"]["atol"])},

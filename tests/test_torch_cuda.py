@@ -93,6 +93,74 @@ def test_pnet_level_kernel_matches_plain(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pnet_level_kernel_tile_edges(dtype):
+    """Levels at the tilings' edges (32 x 32 tiles in bf16, 16 x 16 in f32):
+    PH or PW of 1, 31, 32 and 33, the smallest level, on odd frame sizes,
+    pooled inside the kernel (upscaled) and beforehand (downscaled). A level
+    at half the frame has 2 px windows whose frame patch (148 rows x 444
+    bytes a tile) exceeds the tensor-core kernel's shared-memory patch area,
+    so it pools from device memory."""
+    _need_cuda()
+    w = PK.pack_weights(TM.MTCNN.seeded(0).pnet, dtype).cuda()
+    cases = {(1, 30, 31): [(71, 73), (75, 74), (12, 75), (73, 12), (15, 27), (35, 33)],
+             (2, 121, 203): [(291, 487), (85, 141), (15, 27), (12, 12)],
+             (2, 148, 200): [(74, 100)]}
+    for (b, h, wd), levels in cases.items():
+        frames = _frames(b, h, wd, 10 + h)
+        for level_hw in levels:
+            reg, prob = PK.pnet_level(frames, level_hw, w, dtype)
+            preg, pprob = PK.pnet_level_plain(frames, level_hw, w, dtype)
+            torch.cuda.synchronize()
+            assert reg.shape == preg.shape and prob.shape == pprob.shape
+            tol = TOLS[dtype]
+            torch.testing.assert_close(prob, pprob, **tol)
+            amax = max(1.0, preg.float().abs().max().item())
+            torch.testing.assert_close(reg.float(), preg.float(), rtol=tol["rtol"],
+                                       atol=tol["atol"] * amax)
+
+
+def _edge_slots(b, h, w, seed):
+    """Slot rows at K3's edges: 1 x 1 windows, windows narrower than out
+    (bins of 1-2 px), 1000 px windows, windows on the frame's last row and
+    column and the whole frame, mixed with random ones and dead slots."""
+    rng = np.random.default_rng(seed)
+    rows = [[0, 0, 0, 1, 1, 1], [1, h - 1, w - 1, 1, 1, 1], [0, 5, 7, 3, 17, 1],
+            [1, 100, 200, 23, 9, 1], [0, h - 1000, 1, 1000, 1000, 1],
+            [1, 0, w - 1000, 1000, 997, 1], [0, h - 40, w - 33, 40, 33, 1],
+            [1, 0, 0, h, w, 1], [0, h - 5, 0, 5, w, 1], [0, 3, 3, 30, 30, 0],
+            [1, h - 10, w - 10, 11, 10, 1]]
+    for _ in range(40):
+        wh = int(rng.integers(1, h + 1))
+        ww = int(rng.integers(1, w + 1))
+        rows.append([int(rng.integers(0, b)), int(rng.integers(0, h - wh + 1)),
+                     int(rng.integers(0, w - ww + 1)), wh, ww, int(rng.random() < 0.8)])
+    return torch.tensor(rows, dtype=torch.int32).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [24, 48])
+@pytest.mark.parametrize("width", [1920, 1001], ids=["rows16", "rows_unaligned"])
+def test_pool_crops_kernel_edges_exact(out, width):
+    """Rows of 1920 px take the 16-byte path, rows of 1001 px the byte path;
+    both equal the plain version exactly. An all-dead table is all zero."""
+    _need_cuda()
+    b, h = 2, 1080
+    frames = _frames(b, h, width, 12)
+    slots = _edge_slots(b, h, width, out)
+    got = CK.pool_crops(frames, slots, out)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, CK.pool_crops_plain(frames, slots, out), rtol=0, atol=0)
+    assert (got[9] == 0).all() and (got[1] != 0).any()
+    dead = slots.clone()
+    dead[:, 5] = 0
+    n0 = CK.pool_crops.launches
+    got = CK.pool_crops(frames, dead, out)
+    torch.cuda.synchronize()
+    assert CK.pool_crops.launches == n0 + 1 and (got == 0).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("out", [24, 48])
 def test_pool_crops_kernel_matches_plain_exactly(out):
     _need_cuda()

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from videotofaces_tpu.models import mtcnn as JM
 from videotofaces_tpu.ops import resize as JR
@@ -104,7 +105,7 @@ def test_geometry_and_validation(setup):
     for PNet and non-uint8 frames are refused."""
     _, frames, model = setup
     w = PK.pack_weights(model.pnet, torch.float32)
-    assert w.shape == (PK.NWEIGHTS,)
+    assert w.shape == (PK.weight_count(torch.float32),) == (PK.NPLAIN,)
     x = torch.from_numpy(frames)
     for sh, sw in [(15, 27), (14, 14), UP]:
         reg, prob = PK.pnet_level(x, (sh, sw), w, torch.float32)
@@ -115,3 +116,74 @@ def test_geometry_and_validation(setup):
     with pytest.raises(ValueError):
         PK.pnet_level(x.float(), (20, 20), w, torch.float32)
     assert PK.pnet_level.launches == 0   # the CPU path never counts a launch
+
+
+def _frag_inverse(frags):
+    """{layer: [K, N]} read back from the B-fragment vector lane by lane, as
+    mma.m16n8k16 hands lane (g, t) the rows 2t, 2t+1, 2t+8, 2t+9 of column
+    g of each (k16 step, n8 tile)."""
+    out, o = {}, 0
+    for name, steps, tiles in PK._FRAG_TILES:
+        mat = torch.full((steps * 16, tiles * 8), float("nan"))
+        for s in range(steps):
+            for n in range(tiles):
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for i, row in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
+                        mat[s * 16 + row, n * 8 + g] = frags[o + lane * 4 + i]
+                o += 128
+        out[name] = mat
+    assert o == PK.NFRAG
+    return out
+
+
+def test_tc_fragments_hold_the_gemm_matrices_of_the_convolutions():
+    """The tensor-core kernel's B fragments, read back lane by lane, are its
+    implicit-GEMM matrices, and those matrices, applied to the patches in the
+    kernel's K order, are the convolutions and the heads."""
+    pnet = TM.MTCNN.seeded(0).pnet
+    w = PK.pack_weights(pnet, torch.bfloat16)
+    assert w.shape == (PK.NWEIGHTS,) and PK.NWEIGHTS == PK.NPLAIN + PK.NFRAG
+    p = PK._unpack(w[:PK.NPLAIN])
+    mats = _frag_inverse(w[PK.NPLAIN:])
+    for name, want in PK.gemm_matrices(p).items():
+        torch.testing.assert_close(mats[name], want, rtol=0, atol=0)
+    rng = np.random.default_rng(3)
+    x = lambda c: torch.from_numpy(rng.normal(0, 1, (1, c, 9, 11)).astype(np.float32))
+    conv = lambda v, k: F.conv2d(v, k.permute(3, 2, 0, 1))[0].permute(1, 2, 0)
+    # conv1: K = ky x (4 columns x 4 channels); the even column phase reads
+    # columns x..x+3 for output x, the odd phase x-1..x+2
+    x1 = x(3)
+    xp = F.pad(x1, (1, 1, 0, 0))[0]                                  # [3, 9, 13]
+    xp = torch.cat([xp, torch.zeros_like(xp[:1])])                   # [4, 9, 13]
+    want = conv(x1, p["w1"])                                         # [7, 9, 10]
+    for phase, first in ((0, 1), (1, 0)):   # padded column of output 0's view
+        a1 = torch.stack([xp[c, ky:ky + 7, first + kx:first + kx + 9] for ky in range(3)
+                          for kx in range(4) for c in range(4)], -1)
+        torch.testing.assert_close(a1 @ mats["w1"][48 * phase:48 * (phase + 1), :10], want)
+    assert (mats["w1"][:, 10:] == 0).all()
+    # conv2, conv3: K = tap x 16 channels (conv2's channels 10..15 zero)
+    for name, cin in (("w2", 10), ("w3", 16)):
+        xi = x(cin)
+        x16 = torch.cat([xi[0], torch.zeros((16 - cin, 9, 11))])
+        a = torch.stack([x16[c, ky:ky + 7, kx:kx + 9] for ky in range(3)
+                         for kx in range(3) for c in range(16)], -1)
+        n = p[name].shape[-1]
+        torch.testing.assert_close(a @ mats[name][:, :n], conv(xi, p[name]))
+    torch.testing.assert_close(mats["wh"][:, :6], p["wh"], rtol=0, atol=0)
+    assert (mats["wh"][:, 6:] == 0).all()
+
+
+def test_packed_weights_pack_once_per_module_and_dtype():
+    pnet = TM.MTCNN.seeded(0).pnet
+    a = PK.packed_weights(pnet, torch.bfloat16, "cpu")
+    assert PK.packed_weights(pnet, torch.bfloat16, "cpu") is a
+    torch.testing.assert_close(a, PK.pack_weights(pnet, torch.bfloat16), rtol=0, atol=0)
+    f = PK.packed_weights(pnet, torch.float32, "cpu")
+    assert f is not a and f.dtype == torch.float32 and f.shape == (PK.NPLAIN,)
+    assert a.shape == (PK.weight_count(torch.bfloat16),) == (PK.NWEIGHTS,)
+    with torch.no_grad():
+        pnet.conv1.conv.weight.mul_(2.0)   # a write repacks
+    b = PK.packed_weights(pnet, torch.bfloat16, "cpu")
+    assert b is not a
+    torch.testing.assert_close(b, PK.pack_weights(pnet, torch.bfloat16), rtol=0, atol=0)

@@ -1,4 +1,4 @@
-// PNet over one MTCNN pyramid level, pool included, in one kernel.
+// PNet over one MTCNN pyramid level, pool included.
 //
 // Replaces the two Pallas TPU kernels of the JAX package's stage 1:
 //   videotofaces_tpu/ops/pallas_pnet.py::pnet_level_fused (levels whose pool
@@ -7,8 +7,8 @@
 // One entry point covers every level, pooling straight from the uint8 BGR
 // frame by exact int32 window sums: levels whose windows are at most 2 wide
 // are pooled inside the PNet kernel (as pnet_level_fused does), the others
-// first by pool_level_kernel into a small scratch level (as the JAX package
-// pre-pools them for pnet_level).
+// first by pool_level_kernel into a small channels-last scratch level (as the
+// JAX package pre-pools them for pnet_level).
 //
 // What it computes, per image b and level (SH, SW) of an H x W frame:
 //   level[y][x][c] = round_T(((sum of frame RGB channel c over the adaptive
@@ -25,74 +25,85 @@
 //   reg [B, 4, PH, PW] (T), prob [B, PH, PW] (float32),
 //   PH = ceil((SH-2)/2) - 4, PW = ceil((SW-2)/2) - 4.
 //
-// Design. One block per (image, 16x16 tile of output positions); the tile's
-// level pixels (plus halo), its pool1 map and its c2 map live in shared
-// memory, so no intermediate reaches device memory. The level is up to
-// 4609 wide at 1080p / min face 5, so tiles split rows AND columns. The c2
-// map reuses the level tile's shared memory (dead once pool1 exists), which
-// keeps the block at 37 KB (float) / 18.5 KB (bf16). Weights (6632 floats)
-// are read through L1: every thread of a warp reads the same weight, so each
-// load is one broadcast. The pre-pool gives each level pixel a group of up
-// to 32 lanes: the smallest levels pool ~70x70 frame pixels per level pixel
-// and have only a couple of PNet blocks. The upscaled levels (windows of 1-2
-// frame pixels) skip it: pooling them inside the PNet kernel, halo included,
-// is about 10 % faster on an H100 than writing and reading a scratch level
-// (PERF.md, "One pooling path").
+// What bounds it. At batch 2, 1080p, min face 5 the pyramid is ~175 GFLOP
+// per batch and moves ~0.15 GB (frames in, reg/prob out): bound by
+// operations, 0.18 ms at the bf16 tensor-core rate, 2.6 ms at the float32
+// CUDA-core rate. Every layer is a GEMM in implicit form: M is the output
+// positions (millions per level), N the output channels (16 or 32, padded
+// from 10 and 6), K the taps times input channels (27, 90, 144). Thin
+// channels make N and K small, not M, so they fit mma.sync's m16n8k16 tiles.
 //
-// Bound on the H100: at batch 2, 1080p, min face 5 the pyramid is about
-// 175 GFLOP per batch; the bytes are small (frames in, reg/prob out, ~0.15
-// GB), so the work is bound by operations. Channels of 3/10/16/32 are too
-// thin for wgmma tiles, so this first kernel runs float32 FMAs on the CUDA
-// cores (67 TFLOP/s peak: ~2.6 ms per batch at best); the halo costs 1.27x
-// (c2) to 1.56x (pool1) recomputation per tile.
+// Design, bf16 (pnet_tc_kernel): one block of 8 warps per (image, 32x32
+// tile of output positions). The tile's level pixels (74x74 plus halo, 4
+// channels of which the 4th is 0), pool1 (36x36x16) and c2 (34x34x16,
+// over the level's space once pool1 exists) live in 86 KB of shared memory,
+// channels-last, so a tap is a shifted view of the map read with ldmatrix:
+// conv2 and conv3 per tap (16-channel pixels, halves XOR-swizzled by pixel
+// bit 2 so that 8 consecutive pixels hit 8 distinct bank groups), conv1 per
+// kernel row (K = ky x (4 columns x 4 channels), 3 k16 steps; the odd column
+// phase reads the even phase's aligned 4-column view with weights shifted a
+// column, so four ldmatrix serve all 24 products of 16 pool1 positions).
+// Windows of at most 2x2 frame pixels are pooled from a frame patch staged
+// in shared memory, as a quarter of their four corners' sum (exact). Each
+// warp takes 16 flattened positions at a time (M), all N tiles, and runs
+// mma.sync.m16n8k16 bf16 -> f32. The bias, PReLU, the ceil-mode 2x2 max
+// (over the four conv1 phases, held in registers), the validity mask and the
+// bf16 rounding are its epilogue; the conv3 accumulators become the A
+// fragments of the heads' product directly. Weights arrive as B fragments
+// packed by the wrapper (ops/pnet_kernel.py::tc_fragments), one 16-byte load
+// per fragment and thread. A 32x32 tile recomputes 1.27x (pool1) and 1.13x
+// (c2) of its halo, against 1.56x and 1.27x at 16x16. Two blocks fit an SM
+// (128 registers a thread). Padding (K 27 -> 48 for conv1, N 10 -> 16) and
+// the halo make ~2x the MMAs of the useful products; staging the level tile
+// and the epilogues, not the MMAs, take most of the kernel's time.
+//
+// Design, float32 (pnet_level_kernel): the parity path stays on the CUDA
+// cores (no TF32, no tensor cores): one block per 16x16 tile, level / pool1 /
+// c2 planes in 37 KB of shared memory, float32 FMAs per thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-namespace {
+#include <atomic>
 
-constexpr int TH = 16, TW = 16;                  // output tile (conv3 positions)
-constexpr int C2H = TH + 2, C2W = TW + 2;        // conv2 tile
-constexpr int P1H = TH + 4, P1W = TW + 4;        // pool1 tile
-constexpr int LH = 2 * P1H + 2, LW = 2 * P1W + 2;  // level tile
-constexpr int NTHREADS = TH * TW;
-constexpr int LEVEL_ELEMS = 3 * LH * LW;
-constexpr int P1_ELEMS = 10 * P1H * P1W;
-static_assert(16 * C2H * C2W <= LEVEL_ELEMS, "c2 must fit the level tile");
+#include "window_sums.cuh"
+
+namespace {
 
 // packed weight offsets (floats); conv kernels HWIO, heads [32][6]
 constexpr int OW1 = 0, OB1 = OW1 + 3 * 3 * 3 * 10, OA1 = OB1 + 10;
 constexpr int OW2 = OA1 + 10, OB2 = OW2 + 3 * 3 * 10 * 16, OA2 = OB2 + 16;
 constexpr int OW3 = OA2 + 16, OB3 = OW3 + 3 * 3 * 16 * 32, OA3 = OB3 + 32;
-constexpr int OWH = OA3 + 32, OBH = OWH + 32 * 6, NWEIGHTS = OBH + 6;
+constexpr int OWH = OA3 + 32, OBH = OWH + 32 * 6, NPLAIN = OBH + 6;
+// B fragments of the tensor-core path, after the plain weights (bf16 only): per
+// (k16 step, n8 tile) 32 lanes x 4 values (rows 2t, 2t+1, 2t+8, 2t+9 of the
+// step, column g of the tile); conv1 6x2 tiles (two column phases), conv2
+// 9x2, conv3 9x4, heads 2x1
+constexpr int FT1 = 0, FT2 = FT1 + 6 * 2, FT3 = FT2 + 9 * 2, FTH = FT3 + 9 * 4,
+              NFTILES = FTH + 2;
+constexpr int OFRAG = NPLAIN, NWEIGHTS = OFRAG + NFTILES * 32 * 4;
 
 template <typename T> struct Conv;
 template <> struct Conv<float> {
   __device__ static float to(float v) { return v; }
-  __device__ static float from(float v) { return v; }
 };
 template <> struct Conv<__nv_bfloat16> {
   __device__ static __nv_bfloat16 to(float v) { return __float2bfloat16_rn(v); }
-  __device__ static float from(__nv_bfloat16 v) { return __bfloat162float(v); }
 };
 
 __device__ __forceinline__ float prelu(float v, float a) {
   return fmaxf(v, 0.0f) + a * fminf(v, 0.0f);
 }
 
-// adaptive-average-pool window of level pixel (ly, lx): frame rows [ys, ye),
-// columns [xs, xe) (F.adaptive_avg_pool2d bounds)
-struct Window {
-  int ys, ye, xs, xe;
-};
-__device__ __forceinline__ Window level_window(int ly, int lx, int H, int W,
-                                               int SH, int SW) {
-  return {(int)(((long long)ly * H) / SH),
-          (int)(((long long)(ly + 1) * H + SH - 1) / SH),
-          (int)(((long long)lx * W) / SW),
-          (int)(((long long)(lx + 1) * W + SW - 1) / SW)};
+// adaptive-average-pool window bounds of level index l on an axis of n_in
+// frame pixels pooled to n_out (F.adaptive_avg_pool2d bounds)
+__device__ __forceinline__ int win_start(int l, int n_in, int n_out) {
+  return (int)(((long long)l * n_in) / n_out);
+}
+__device__ __forceinline__ int win_end(int l, int n_in, int n_out) {
+  return (int)(((long long)(l + 1) * n_in + n_out - 1) / n_out);
 }
 
 __device__ __forceinline__ void add_rgb(const uint8_t* bgr, int s[3]) {
@@ -109,49 +120,58 @@ __device__ __forceinline__ float normalized(int sum, int area) {
 
 // Pre-pool of a level whose windows are wider than 2 frame pixels (the
 // downscaled levels, which the JAX package pooled outside its kernel too):
-// out [B, 3, SH, SW] in T. A group of G lanes (a power of two <= 32, about
-// the window width) sums each level pixel's window, striding over its
-// columns row by row, and reduces with shuffles — the smallest levels pool
-// ~70x70 frame pixels each, too many for one thread, and spread over
-// thousands of warps this way instead of over the pnet kernel's few blocks.
+// out [B, SH, SW, 4] in T, channel 3 zero. One block per (level row, image):
+// its threads sum the row's window of frame rows [ys, ye) column by column,
+// sweeping whole frame rows together (window_sums.cuh), then each thread
+// adds the column window of one level pixel — the smallest levels pool
+// ~70x70 frame pixels per level pixel, and each frame byte is read once per
+// level row it belongs to (once or twice), in coalesced 16-byte loads.
 template <typename T>
 __global__ void __launch_bounds__(256)
-pool_level_kernel(const uint8_t* __restrict__ frames, int B, int H, int W,
-                  int SH, int SW, int G, T* __restrict__ out) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long p = gid / G;
-  const int lane = (int)(gid % G);
-  const bool live = p < (long long)B * SH * SW;
-  int s[3] = {0, 0, 0}, area = 1;
-  int b = 0, ly = 0, lx = 0;
-  if (live) {
-    b = (int)(p / ((long long)SH * SW));
-    ly = (int)((p / SW) % SH);
-    lx = (int)(p % SW);
-    const Window win = level_window(ly, lx, H, W, SH, SW);
-    area = (win.ye - win.ys) * (win.xe - win.xs);
-    const uint8_t* img = frames + (size_t)b * H * W * 3;
-    for (int y = win.ys; y < win.ye; ++y)
-      for (int x = win.xs + lane; x < win.xe; x += G)
-        add_rgb(img + ((size_t)y * W + x) * 3, s);
+pool_level_kernel(const uint8_t* __restrict__ frames, int H, int W, int SH,
+                  int SW, int vec16, T* __restrict__ out) {
+  extern __shared__ int colsum[];   // [W * 3 + 32]
+  const int ly = blockIdx.x, b = blockIdx.y;
+  const int ys = win_start(ly, H, SH), ye = win_end(ly, H, SH);
+  window_sums::column_sums(frames + (size_t)b * H * W * 3, (size_t)W * 3, 0, W * 3,
+                           ys, ye, vec16 != 0, colsum);
+  __syncthreads();
+  for (int lx = threadIdx.x; lx < SW; lx += blockDim.x) {
+    const int xs = win_start(lx, W, SW), xe = win_end(lx, W, SW);
+    int s[3] = {0, 0, 0};
+    for (int x = xs; x < xe; ++x) {
+      s[0] += colsum[3 * x + 2];   // BGR frame -> RGB channels
+      s[1] += colsum[3 * x + 1];
+      s[2] += colsum[3 * x];
+    }
+    const int area = (ye - ys) * (xe - xs);
+    T* o = out + (((size_t)b * SH + ly) * SW + lx) * 4;
+    for (int k = 0; k < 3; ++k) o[k] = Conv<T>::to(normalized(s[k], area));
+    o[3] = Conv<T>::to(0.0f);
   }
-  for (int o = G / 2; o > 0; o >>= 1)
-    for (int k = 0; k < 3; ++k) s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
-  if (live && lane == 0)
-    for (int k = 0; k < 3; ++k)
-      out[(((size_t)b * 3 + k) * SH + ly) * SW + lx] = Conv<T>::to(normalized(s[k], area));
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// float32: CUDA cores, 16x16 output tiles
+
+constexpr int TH = 16, TW = 16;                  // output tile (conv3 positions)
+constexpr int C2H = TH + 2, C2W = TW + 2;        // conv2 tile
+constexpr int P1H = TH + 4, P1W = TW + 4;        // pool1 tile
+constexpr int LH = 2 * P1H + 2, LW = 2 * P1W + 2;  // level tile
+constexpr int NTHREADS = TH * TW;
+constexpr int LEVEL_ELEMS = 3 * LH * LW;
+constexpr int P1_ELEMS = 10 * P1H * P1W;
+static_assert(16 * C2H * C2W <= LEVEL_ELEMS, "c2 must fit the level tile");
+
 __global__ void __launch_bounds__(NTHREADS)
 pnet_level_kernel(const uint8_t* __restrict__ frames, int H, int W, int SH,
-                  int SW, const T* __restrict__ pooled,
-                  const float* __restrict__ wts, T* __restrict__ reg,
+                  int SW, const float* __restrict__ pooled,
+                  const float* __restrict__ wts, float* __restrict__ reg,
                   float* __restrict__ prob) {
-  __shared__ T smem[LEVEL_ELEMS + P1_ELEMS];
-  T* lvl = smem;                 // [3][LH][LW]
-  T* p1 = smem + LEVEL_ELEMS;    // [10][P1H][P1W]
-  T* c2 = smem;                  // [16][C2H][C2W], aliases lvl after stage 2
+  __shared__ float smem[LEVEL_ELEMS + P1_ELEMS];
+  float* lvl = smem;                 // [3][LH][LW]
+  float* p1 = smem + LEVEL_ELEMS;    // [10][P1H][P1W]
+  float* c2 = smem;                  // [16][C2H][C2W], aliases lvl after stage 2
 
   const int b = blockIdx.z;
   const int oy0 = blockIdx.y * TH, ox0 = blockIdx.x * TW;
@@ -167,20 +187,20 @@ pnet_level_kernel(const uint8_t* __restrict__ frames, int H, int W, int SH,
     const int ly = 2 * oy0 + r, lx = 2 * ox0 + c;
     const bool inside = ly < SH && lx < SW;
     if (pooled != nullptr) {
-      for (int k = 0; k < 3; ++k)
-        lvl[(k * LH + r) * LW + c] =
-            inside ? pooled[(((size_t)b * 3 + k) * SH + ly) * SW + lx] : Conv<T>::to(0.0f);
+      const float* px = pooled + (((size_t)b * SH + ly) * SW + lx) * 4;
+      for (int k = 0; k < 3; ++k) lvl[(k * LH + r) * LW + c] = inside ? px[k] : 0.0f;
       continue;
     }
     int s[3] = {0, 0, 0}, area = 1;
     if (inside) {
-      const Window win = level_window(ly, lx, H, W, SH, SW);
-      area = (win.ye - win.ys) * (win.xe - win.xs);
-      for (int y = win.ys; y < win.ye; ++y)
-        for (int x = win.xs; x < win.xe; ++x) add_rgb(img + ((size_t)y * W + x) * 3, s);
+      const int ys = win_start(ly, H, SH), ye = win_end(ly, H, SH);
+      const int xs = win_start(lx, W, SW), xe = win_end(lx, W, SW);
+      area = (ye - ys) * (xe - xs);
+      for (int y = ys; y < ye; ++y)
+        for (int x = xs; x < xe; ++x) add_rgb(img + ((size_t)y * W + x) * 3, s);
     }
     for (int k = 0; k < 3; ++k)
-      lvl[(k * LH + r) * LW + c] = Conv<T>::to(inside ? normalized(s[k], area) : 0.0f);
+      lvl[(k * LH + r) * LW + c] = inside ? normalized(s[k], area) : 0.0f;
   }
   __syncthreads();
 
@@ -201,8 +221,7 @@ pnet_level_kernel(const uint8_t* __restrict__ frames, int H, int W, int SH,
         for (int ky = 0; ky < 3; ++ky)
           for (int kx = 0; kx < 3; ++kx)
             for (int ci = 0; ci < 3; ++ci) {
-              const float x = Conv<T>::from(
-                  lvl[(ci * LH + 2 * pr + dy + ky) * LW + 2 * pc + dx + kx]);
+              const float x = lvl[(ci * LH + 2 * pr + dy + ky) * LW + 2 * pc + dx + kx];
               const float* w = wts + OW1 + ((ky * 3 + kx) * 3 + ci) * 10;
               for (int o = 0; o < 10; ++o) acc[o] = fmaf(w[o], x, acc[o]);
             }
@@ -212,8 +231,7 @@ pnet_level_kernel(const uint8_t* __restrict__ frames, int H, int W, int SH,
     }
     // a pool position with no valid conv1 input lies outside the level's
     // pool1 map and feeds only outputs that are never written
-    for (int o = 0; o < 10; ++o)
-      p1[(o * P1H + pr) * P1W + pc] = Conv<T>::to(any ? m[o] : 0.0f);
+    for (int o = 0; o < 10; ++o) p1[(o * P1H + pr) * P1W + pc] = any ? m[o] : 0.0f;
   }
   __syncthreads();
 
@@ -227,14 +245,13 @@ pnet_level_kernel(const uint8_t* __restrict__ frames, int H, int W, int SH,
     for (int ky = 0; ky < 3; ++ky)
       for (int kx = 0; kx < 3; ++kx)
         for (int ci = 0; ci < 10; ++ci) {
-          const float x = Conv<T>::from(p1[(ci * P1H + r + ky) * P1W + c + kx]);
+          const float x = p1[(ci * P1H + r + ky) * P1W + c + kx];
           const float* w = wts + OW2 + ((ky * 3 + kx) * 10 + ci) * 16 + half * 8;
           for (int o = 0; o < 8; ++o) acc[o] = fmaf(w[o], x, acc[o]);
         }
     for (int o = 0; o < 8; ++o) {
       const int oc = half * 8 + o;
-      c2[(oc * C2H + r) * C2W + c] =
-          Conv<T>::to(prelu(acc[o] + wts[OB2 + oc], wts[OA2 + oc]));
+      c2[(oc * C2H + r) * C2W + c] = prelu(acc[o] + wts[OB2 + oc], wts[OA2 + oc]);
     }
   }
   __syncthreads();
@@ -246,57 +263,377 @@ pnet_level_kernel(const uint8_t* __restrict__ frames, int H, int W, int SH,
   for (int ky = 0; ky < 3; ++ky)
     for (int kx = 0; kx < 3; ++kx)
       for (int ci = 0; ci < 16; ++ci) {
-        const float x = Conv<T>::from(c2[(ci * C2H + r + ky) * C2W + c + kx]);
+        const float x = c2[(ci * C2H + r + ky) * C2W + c + kx];
         const float* w = wts + OW3 + ((ky * 3 + kx) * 16 + ci) * 32;
         for (int o = 0; o < 32; ++o) acc[o] = fmaf(w[o], x, acc[o]);
       }
   float hv[6];
   for (int o = 0; o < 6; ++o) hv[o] = 0.0f;
   for (int ci = 0; ci < 32; ++ci) {
-    const float v = Conv<T>::from(
-        Conv<T>::to(prelu(acc[ci] + wts[OB3 + ci], wts[OA3 + ci])));
+    const float v = prelu(acc[ci] + wts[OB3 + ci], wts[OA3 + ci]);
     for (int o = 0; o < 6; ++o) hv[o] = fmaf(wts[OWH + ci * 6 + o], v, hv[o]);
   }
   const int oy = oy0 + r, ox = ox0 + c;
   if (oy < PH && ox < PW) {
     for (int o = 0; o < 4; ++o)
-      reg[(((size_t)b * 4 + o) * PH + oy) * PW + ox] =
-          Conv<T>::to(hv[o] + wts[OBH + o]);
+      reg[(((size_t)b * 4 + o) * PH + oy) * PW + ox] = hv[o] + wts[OBH + o];
     const float d = (hv[5] + wts[OBH + 5]) - (hv[4] + wts[OBH + 4]);
     prob[((size_t)b * PH + oy) * PW + ox] = 1.0f / (1.0f + expf(-d));
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16, f32 accumulators), 32x32 tiles
+
+namespace tc {
+
+constexpr int TH = 32, TW = 32;                   // output tile (conv3 positions)
+constexpr int C2H = TH + 2, C2W = TW + 2;         // conv2 tile, 34x34
+constexpr int P1H = TH + 4, P1W = TW + 4;         // pool1 tile, 36x36
+constexpr int LH = 2 * P1H + 2, LW = 2 * P1W + 2;  // level tile, 74x74
+constexpr int LWS = LW + 2;   // row stride: conv1's 4th tap column stays in the row
+constexpr int NWARPS = 8, NTHREADS = 32 * NWARPS;
+constexpr int LVL_BYTES = LH * LWS * 8;           // 4 bf16 channels per pixel
+constexpr int P1_BYTES = P1H * P1W * 32;          // 16 bf16 channels per pixel
+constexpr int C2_BYTES = C2H * C2W * 32;
+constexpr int P1_OFF = LVL_BYTES;                 // c2 reuses [0, C2_BYTES)
+constexpr int BND_OFF = P1_OFF + P1_BYTES;        // level window bounds
+constexpr int SMEM_BYTES = BND_OFF + 4 * LH * 4;
+static_assert(C2_BYTES <= LVL_BYTES, "c2 must fit the level tile");
+static_assert(LH == LW, "bounds table holds LH rows and LW columns");
+static_assert(P1_OFF % 16 == 0 && BND_OFF % 16 == 0, "16-byte aligned maps");
+constexpr int P1_TILES = (P1H * P1W + 15) / 16;   // 81
+constexpr int C2_TILES = (C2H * C2W + 15) / 16;   // 73
+constexpr int C3_TILES = TH * TW / 16;            // 64
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// byte offset of 8-channel half h of pixel q in a 16-channel map; the halves
+// of pixels 4..7 (mod 8) are swapped so that ldmatrix's 8 rows of one
+// matrix, 8 consecutive pixels, fall on 8 distinct 16-byte bank groups
+__device__ __forceinline__ uint32_t px16(int q, int h) {
+  return (uint32_t)(q * 32 + ((h ^ ((q >> 2) & 1)) << 4));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                      uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+
+// this lane's B fragment of packed tile ft: {rows 2t,2t+1}, {2t+8,2t+9}
+__device__ __forceinline__ void bfrag(const float* __restrict__ wts, int ft,
+                                      int lane, uint32_t& b0, uint32_t& b1) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(wts + OFRAG) + ft * 32 + lane);
+  b0 = pack_bf16(v.x, v.y);
+  b1 = pack_bf16(v.z, v.w);
+}
+
+// one 16-position m-tile of a 16-channel-input 3x3 conv with NT n8 tiles:
+// ldmatrix A from the source map (width src_w pixels) at flattened
+// destination positions (width dst_w), 9 taps = 9 k16 steps
+template <int NT>
+__device__ __forceinline__ void conv16(uint32_t src, int src_w, int dst_w,
+                                       int r_max, int mt, int lane,
+                                       const uint32_t (&bw)[9][NT][2],
+                                       float (&acc)[NT][4]) {
+  const int mrow = (lane & 7) + ((lane >> 3) & 1) * 8, h = lane >> 4;
+  const int r = min(mt * 16 + mrow, r_max);
+  const int q0 = (r / dst_w) * src_w + r % dst_w;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      uint32_t a0, a1, a2, a3;
+      ldsm4(src + px16(q0 + ky * src_w + kx, h), a0, a1, a2, a3);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mma(acc[n], a0, a1, a2, a3, bw[ky * 3 + kx][n][0], bw[ky * 3 + kx][n][1]);
+    }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 2)
+pnet_tc_kernel(const uint8_t* __restrict__ frames, int H, int W, int SH, int SW,
+               const __nv_bfloat16* __restrict__ pooled,
+               const float* __restrict__ wts, __nv_bfloat16* __restrict__ reg,
+               float* __restrict__ prob) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint32_t* lvl = reinterpret_cast<uint32_t*>(smem);   // [LH][LWS] x 2 words
+  int* bnd = reinterpret_cast<int*>(smem + BND_OFF);   // ys, ye, xs, xe
+  const uint32_t s_lvl = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t s_p1 = s_lvl + P1_OFF, s_c2 = s_lvl;
+
+  const int b = blockIdx.z;
+  const int oy0 = blockIdx.y * TH, ox0 = blockIdx.x * TW;
+  const int ch = SH - 2, cw = SW - 2;                 // conv1 output size
+  const int PH = (ch + 1) / 2 - 4, PW = (cw + 1) / 2 - 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // stage 1: the level tile (rows 2*oy0.., cols 2*ox0..) as bf16 RGB0 pixels,
+  // zero outside the level and in the stride padding. Pooled here, the
+  // tile's windows cover a small frame patch (~31x31 px at the largest
+  // level), staged first in pool1's space with coalesced loads: frame pixel
+  // (y, x) is then at src + (y - fy0) * pitch + 3 * (x - fx0).
+  const uint8_t* src = frames + (size_t)b * H * W * 3;
+  size_t pitch = (size_t)W * 3;
+  int fy0 = 0, fx0 = 0;
+  if (pooled == nullptr) {
+    for (int i = tid; i < 2 * LH; i += NTHREADS) {
+      const int r = i % LH;
+      const bool col = i >= LH;
+      const int l = (col ? 2 * ox0 : 2 * oy0) + r, n_in = col ? W : H, n_out = col ? SW : SH;
+      bnd[(col ? 2 : 0) * LH + r] = win_start(l, n_in, n_out);
+      bnd[(col ? 3 : 1) * LH + r] = win_end(l, n_in, n_out);
+    }
+    __syncthreads();
+    const int r_last = min(LH, SH - 2 * oy0) - 1, c_last = min(LW, SW - 2 * ox0) - 1;
+    const int rows = bnd[LH + r_last] - bnd[0];
+    const int bytes = (bnd[3 * LH + c_last] - bnd[2 * LH]) * 3;
+    if (rows * bytes <= P1_BYTES) {
+      fy0 = bnd[0];
+      fx0 = bnd[2 * LH];
+      uint8_t* patch = smem + P1_OFF;
+      const uint8_t* g = src + (size_t)fy0 * pitch + 3 * fx0;
+      for (int y = warp; y < rows; y += NWARPS)
+        for (int x = lane; x < bytes; x += 32) patch[y * bytes + x] = __ldg(g + y * pitch + x);
+      __syncthreads();
+      src = patch;
+      pitch = bytes;
+    }
+  }
+  for (int i = tid; i < LH * LWS; i += NTHREADS) {
+    const int r = i / LWS, c = i % LWS;
+    const int ly = 2 * oy0 + r, lx = 2 * ox0 + c;
+    uint2 v = make_uint2(0u, 0u);
+    if (c < LW && ly < SH && lx < SW) {
+      if (pooled != nullptr) {
+        v = __ldg(reinterpret_cast<const uint2*>(pooled) + ((size_t)b * SH + ly) * SW + lx);
+      } else {
+        // a window of at most 2x2 pixels: its four corners count each of its
+        // pixels 4 / area times, so a quarter of their sum is the exact mean
+        const int ys = bnd[r], ye = bnd[LH + r], xs = bnd[2 * LH + c], xe = bnd[3 * LH + c];
+        const uint8_t* p = src + (ys - fy0) * pitch + 3 * (xs - fx0);
+        const size_t dyb = (ye - 1 - ys) * pitch;
+        const int dxb = 3 * (xe - 1 - xs);
+        int s[3] = {0, 0, 0};
+        add_rgb(p, s);
+        add_rgb(p + dxb, s);
+        add_rgb(p + dyb, s);
+        add_rgb(p + dyb + dxb, s);
+        float f[3];
+        for (int k = 0; k < 3; ++k) f[k] = ((float)s[k] * 0.25f - 127.5f) / 128.0f;
+        v = make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], 0.0f));
+      }
+    }
+    reinterpret_cast<uint2*>(lvl)[i] = v;
+  }
+  __syncthreads();
+
+  // stage 2: conv1 for the four 2x2 pool phases (dy, dx), PReLU, max over
+  // the valid phases -> pool1 (16 channels, 10..15 zero). K = ky x (4
+  // columns x 4 channels): both column phases read level columns 2px..2px+3
+  // of row 2py + dy + ky, a 16-byte-aligned view that ldmatrix loads once for
+  // the four row offsets dy + ky; phase dx = 0 weights the first three
+  // columns, phase dx = 1 (its own B fragments, shifted a column) the last
+  // three.
+  {
+    uint32_t bw[2][3][2][2];   // [dx][ky][n tile][reg]
+    float bias[2][2], slope[2][2];
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          bfrag(wts, FT1 + (dx * 3 + k) * 2 + n, lane, bw[dx][k][n][0], bw[dx][k][n][1]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int o = n * 8 + 2 * t + j;
+        bias[n][j] = o < 10 ? wts[OB1 + o] : 0.0f;
+        slope[n][j] = o < 10 ? wts[OA1 + o] : 0.0f;
+      }
+    const int mrow = (lane & 7) + ((lane >> 3) & 1) * 8, h = lane >> 4;
+    for (int mt = warp; mt < P1_TILES; mt += NWARPS) {
+      const int rl = mt * 16 + mrow;               // this lane's ldmatrix row
+      const uint32_t arow =
+          s_lvl + (uint32_t)((2 * (rl / P1W) * LWS + 2 * (rl % P1W)) * 8 + h * 16);
+      uint32_t a[4][4];                            // level rows 2py + 0..3
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        ldsm4(arow + d * LWS * 8, a[d][0], a[d][1], a[d][2], a[d][3]);
+      int gy[2], gx[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = mt * 16 + g + 8 * j;
+        gy[j] = oy0 + r / P1W;
+        gx[j] = ox0 + r % P1W;
+      }
+      float m[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) m[n][0] = m[n][1] = m[n][2] = m[n][3] = -CUDART_INF_F;
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx) {
+          float acc[2][4] = {};
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+              mma(acc[n], a[dy + ky][0], a[dy + ky][1], a[dy + ky][2], a[dy + ky][3],
+                  bw[dx][ky][n][0], bw[dx][ky][n][1]);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {       // row g (j = 0), row g + 8 (j = 1)
+            if (2 * gy[j] + dy >= ch || 2 * gx[j] + dx >= cw) continue;
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                m[n][2 * j + e] = fmaxf(m[n][2 * j + e],
+                                        prelu(acc[n][2 * j + e] + bias[n][e], slope[n][e]));
+          }
+        }
+      // a pool position with no valid conv1 input lies outside the level's
+      // pool1 map and feeds only outputs that are never written
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int q = mt * 16 + g + 8 * j;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float v0 = m[n][2 * j], v1 = m[n][2 * j + 1];
+          const bool any = v0 != -CUDART_INF_F;
+          *reinterpret_cast<uint32_t*>(smem + P1_OFF + px16(q, n) + 4 * t) =
+              pack_bf16(any ? v0 : 0.0f, any ? v1 : 0.0f);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // stage 3: conv2 + PReLU -> c2 (over the level tile)
+  {
+    uint32_t bw[9][2][2];
+    float bias[2][2], slope[2][2];
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) bfrag(wts, FT2 + k * 2 + n, lane, bw[k][n][0], bw[k][n][1]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        bias[n][j] = wts[OB2 + n * 8 + 2 * t + j];
+        slope[n][j] = wts[OA2 + n * 8 + 2 * t + j];
+      }
+    for (int mt = warp; mt < C2_TILES; mt += NWARPS) {
+      float acc[2][4];
+      conv16<2>(s_p1, P1W, C2W, C2H * C2W - 1, mt, lane, bw, acc);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int q = mt * 16 + g + 8 * j;
+        if (q >= C2H * C2W) continue;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          *reinterpret_cast<uint32_t*>(smem + px16(q, n) + 4 * t) =
+              pack_bf16(prelu(acc[n][2 * j] + bias[n][0], slope[n][0]),
+                        prelu(acc[n][2 * j + 1] + bias[n][1], slope[n][1]));
+      }
+    }
+  }
+  __syncthreads();
+
+  // stage 4: conv3 + PReLU, rounded to bf16 in registers, which are the A
+  // fragments of the heads' product (K = the 32 channels, N = 6 of 8)
+  uint32_t bw[9][4][2], bh[2][2];
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) bfrag(wts, FT3 + k * 4 + n, lane, bw[k][n][0], bw[k][n][1]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) bfrag(wts, FTH + k, lane, bh[k][0], bh[k][1]);
+  const float hb0 = t < 3 ? wts[OBH + 2 * t] : 0.0f, hb1 = t < 3 ? wts[OBH + 2 * t + 1] : 0.0f;
+  for (int mt = warp; mt < C3_TILES; mt += NWARPS) {
+    float acc[4][4];
+    conv16<4>(s_c2, C2W, TW, TH * TW - 1, mt, lane, bw, acc);
+    uint32_t a[4][2];   // [n tile][row g, row g + 8]
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {   // bias and slopes re-read through L1
+      const float2 bs = __ldg(reinterpret_cast<const float2*>(wts + OB3 + n * 8) + t);
+      const float2 sl = __ldg(reinterpret_cast<const float2*>(wts + OA3 + n * 8) + t);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        a[n][j] = pack_bf16(prelu(acc[n][2 * j] + bs.x, sl.x),
+                            prelu(acc[n][2 * j + 1] + bs.y, sl.y));
+    }
+    float hv[4] = {};
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      mma(hv, a[2 * k][0], a[2 * k][1], a[2 * k + 1][0], a[2 * k + 1][1], bh[k][0], bh[k][1]);
+    // columns 2t, 2t+1: t = 0, 1 -> reg channels; t = 2 -> cls0, cls1
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = mt * 16 + g + 8 * j;
+      const int oy = oy0 + r / TW, ox = ox0 + r % TW;
+      if (oy >= PH || ox >= PW || t == 3) continue;
+      const float v0 = hv[2 * j] + hb0, v1 = hv[2 * j + 1] + hb1;
+      if (t < 2) {
+        reg[(((size_t)b * 4 + 2 * t) * PH + oy) * PW + ox] = __float2bfloat16_rn(v0);
+        reg[(((size_t)b * 4 + 2 * t + 1) * PH + oy) * PW + ox] = __float2bfloat16_rn(v1);
+      } else {
+        prob[((size_t)b * PH + oy) * PW + ox] = 1.0f / (1.0f + expf(-(v1 - v0)));
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
 template <typename T>
-int launch(const void* frames, int B, int H, int W, int SH, int SW,
-                  void* pooled, const void* weights, void* reg, void* prob,
-                  cudaStream_t s) {
-  const int PH = (SH - 1) / 2 - 4, PW = (SW - 1) / 2 - 4;
-  if (pooled != nullptr) {
-    int G = 1;
-    while (G < 32 && G < (W + SW - 1) / SW + 1) G *= 2;
-    const long long threads = (long long)B * SH * SW * G;
-    pool_level_kernel<T><<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
-        (const uint8_t*)frames, B, H, W, SH, SW, G, (T*)pooled);
-    const cudaError_t e = cudaGetLastError();
+int prepool(const void* frames, int B, int H, int W, int SH, int SW, void* pooled,
+            cudaStream_t s) {
+  const size_t smem = ((size_t)W * 3 + 32) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pool_level_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((PW + TW - 1) / TW, (PH + TH - 1) / TH, B);
-  pnet_level_kernel<T><<<grid, NTHREADS, 0, s>>>(
-      (const uint8_t*)frames, H, W, SH, SW, (const T*)pooled,
-      (const float*)weights, (T*)reg, (float*)prob);
+  pool_level_kernel<T><<<dim3((unsigned)SH, (unsigned)B), 256, smem, s>>>(
+      (const uint8_t*)frames, H, W, SH, SW, (int)window_sums::rows_vec16(frames, W),
+      (T*)pooled);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int pnet_weight_count() { return NWEIGHTS; }
+extern "C" int pnet_plain_weight_count() { return NPLAIN; }
 
 // frames: uint8 [B, H, W, 3] BGR; pooled: NULL for a level whose pool
 // windows are at most 2 wide (pooled inside the kernel), else scratch T
-// [B, 3, SH, SW] for the pre-pool; weights: float32 [NWEIGHTS]; reg: T
-// [B, 4, PH, PW]; prob: float32 [B, PH, PW]; bf16 != 0 selects T = bf16.
-// Returns the first failing launch's cudaGetLastError(), else 0.
+// [B, SH, SW, 4] for the pre-pool; weights: float32 [NWEIGHTS] for bf16,
+// [NPLAIN] for float32; reg: T
+// [B, 4, PH, PW]; prob: float32 [B, PH, PW]; bf16 != 0 selects T = bf16 and
+// the tensor-core kernel. Returns the first failing launch's
+// cudaGetLastError(), else 0.
 extern "C" int pnet_level_launch(const void* frames, int B, int H, int W,
                                  int SH, int SW, void* pooled,
                                  const void* weights, void* reg, void* prob,
@@ -304,7 +641,36 @@ extern "C" int pnet_level_launch(const void* frames, int B, int H, int W,
   const int PH = (SH - 1) / 2 - 4, PW = (SW - 1) / 2 - 4;
   if (B <= 0 || PH <= 0 || PW <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return launch<__nv_bfloat16>(frames, B, H, W, SH, SW, pooled, weights, reg, prob, s);
-  return launch<float>(frames, B, H, W, SH, SW, pooled, weights, reg, prob, s);
+  if (bf16) {
+    if (pooled != nullptr) {
+      const int e = prepool<__nv_bfloat16>(frames, B, H, W, SH, SW, pooled, s);
+      if (e != 0) return e;
+    }
+    // the dynamic shared-memory limit is raised once per device
+    static std::atomic<bool> smem_set[64];
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (!smem_set[dev].load()) {
+      e = cudaFuncSetAttribute(tc::pnet_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               tc::SMEM_BYTES);
+      if (e != cudaSuccess) return (int)e;
+      smem_set[dev].store(true);
+    }
+    const dim3 grid((PW + tc::TW - 1) / tc::TW, (PH + tc::TH - 1) / tc::TH, B);
+    tc::pnet_tc_kernel<<<grid, tc::NTHREADS, tc::SMEM_BYTES, s>>>(
+        (const uint8_t*)frames, H, W, SH, SW, (const __nv_bfloat16*)pooled,
+        (const float*)weights, (__nv_bfloat16*)reg, (float*)prob);
+    return (int)cudaGetLastError();
+  }
+  if (pooled != nullptr) {
+    const int e = prepool<float>(frames, B, H, W, SH, SW, pooled, s);
+    if (e != 0) return e;
+  }
+  const dim3 grid((PW + TW - 1) / TW, (PH + TH - 1) / TH, B);
+  pnet_level_kernel<<<grid, NTHREADS, 0, s>>>(
+      (const uint8_t*)frames, H, W, SH, SW, (const float*)pooled,
+      (const float*)weights, (float*)reg, (float*)prob);
+  return (int)cudaGetLastError();
 }

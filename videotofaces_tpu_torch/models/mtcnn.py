@@ -32,7 +32,7 @@ from torch import nn
 
 from ..ops.crops_kernel import pool_crops
 from ..ops.nms import iom_chain_suppress, nms_keep_mask_bucketed, topk_by_score
-from ..ops.pnet_kernel import pack_weights, pnet_level
+from ..ops.pnet_kernel import packed_weights, pnet_level
 from ..utils.weights import mtcnn_from_jax
 from .layers import PConv, PReLU, init_uniform_fan_in_
 
@@ -230,7 +230,7 @@ def full_forward(model, frames_u8, minsize=20, caps=Caps(),
         raise ValueError("unknown stage1_nms %r (want 'level', 'stacked', or "
                          "None for the default)" % (stage1_nms,))
     frames_u8 = frames_u8.contiguous()
-    weights = pack_weights(model.pnet, kdt).to(dev)
+    weights = packed_weights(model.pnet, kdt, dev)   # packed once per model
     zeros_b = torch.zeros((b,), dtype=torch.int32, device=dev)
     counts = {}
 

@@ -2,11 +2,11 @@
 
 Each source has a plain C interface and is compiled on its own by ``nvcc``
 for ``sm_90a`` into a shared library under ``<repo>/build/torch_cuda/``,
-named by a hash of its text and flags, then loaded with ``ctypes``. Nothing
-is built at import: the first CUDA call of a kernel wrapper builds what it
-needs, and ``build_all()`` builds every source at once, one ``nvcc`` per
-source running in parallel. No fast math: the kernels' divisions must stay
-IEEE-exact.
+named by a hash of its text, the headers beside it (``csrc/*.cuh``) and the
+flags, then loaded with ``ctypes``. Nothing is built at import: the first
+CUDA call of a kernel wrapper builds what it needs, and ``build_all()``
+builds every source at once, one ``nvcc`` per source running in parallel.
+No fast math: the kernels' divisions must stay IEEE-exact.
 """
 
 import ctypes
@@ -26,7 +26,6 @@ _PKG = osp.dirname(osp.dirname(osp.abspath(__file__)))
 _CSRC = osp.join(_PKG, "csrc")
 _lock = threading.Lock()
 _libs = {}
-build_log = {}   # source -> {"seconds": float, "ptxas": str} for builds run here
 
 
 def build_dir():
@@ -46,8 +45,12 @@ def _nvcc():
 
 
 def _target(src):
-    with open(osp.join(_CSRC, src), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(FLAGS).encode()).hexdigest()
+    h = hashlib.sha1(" ".join(FLAGS).encode())
+    # the source and every header beside it, which it may include
+    for name in [src] + sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh")):
+        with open(osp.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()
     return osp.join(build_dir(), "%s_%s.so" % (src[:-3], digest[:12]))
 
 
@@ -59,12 +62,13 @@ def _start(src, out):
                                  stderr=subprocess.STDOUT, text=True)
 
 
-def _finish(src, out, tmp, proc, t0):
+def _finish(src, out, tmp, proc):
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed on %s:\n%s" % (src, log))
+    with open(out + ".log", "w") as f:   # kept beside the library: ptxas_log()
+        f.write(log)
     os.replace(tmp, out)
-    build_log[src] = {"seconds": time.perf_counter() - t0, "ptxas": log}
 
 
 def build_all(sources=SOURCES):
@@ -78,8 +82,15 @@ def build_all(sources=SOURCES):
             if not osp.isfile(out):
                 jobs.append((src, out) + _start(src, out))
         for src, out, tmp, proc in jobs:
-            _finish(src, out, tmp, proc, t0)
+            _finish(src, out, tmp, proc)
     return time.perf_counter() - t0
+
+
+def ptxas_log(src):
+    """The ``nvcc -Xptxas -v`` output of a built source (registers, shared
+    memory and spills per kernel), whichever process built it."""
+    with open(_target(src) + ".log") as f:
+        return f.read()
 
 
 def load(src):

@@ -13,11 +13,16 @@ weights, dtype)`` -> ``reg [B, 4, PH, PW]`` in ``dtype`` and ``prob
 On the card, levels whose pool windows are at most 2 wide (the upscaled
 ones) are pooled inside the PNet kernel, the others by a pre-pool kernel
 into a small scratch level first — the same split as the two JAX kernels,
-and faster on the upscaled levels than pre-pooling every level.
+and faster on the upscaled levels than pre-pooling every level. bfloat16
+runs the convolutions on the tensor cores, float32 (the parity mode) on the
+CUDA cores.
 ``dtype`` is the compute dtype (float32 or bfloat16): conv operands are
 ``dtype``-valued, products and sums float32, and the pooled level, pool1,
 conv2, conv3 and reg are rounded to ``dtype`` where the JAX kernel rounds
-them. ``weights`` is ``pack_weights(pnet, dtype)``.
+them. ``weights`` is ``pack_weights(pnet, dtype)``: the plain weights, and
+for bfloat16 the same weights again as the tensor-core kernel's B fragments
+(``tc_fragments``); ``packed_weights`` caches it per module, dtype and
+device.
 
 The kernel's bound and design are in the source's header.
 """
@@ -32,7 +37,11 @@ from . import _cuda
 from .resize import adaptive_pool_full, integral_image, normalize, pool_windows_le2
 
 _SRC = "pnet_level.cu"
-NWEIGHTS = 6632   # must equal pnet_weight_count() of the source
+NPLAIN = 6632     # plain weights; must equal pnet_plain_weight_count()
+# the tensor-core kernel's B matrices: (name, k16 steps, n8 tiles) per layer
+_FRAG_TILES = (("w1", 6, 2), ("w2", 9, 2), ("w3", 9, 4), ("wh", 2, 1))
+NFRAG = sum(k * n for _, k, n in _FRAG_TILES) * 32 * 4
+NWEIGHTS = NPLAIN + NFRAG   # bf16; must equal pnet_weight_count() of the source
 
 # (name, torch shape) in packed order; conv kernels HWIO, heads [32, 6]
 _LAYOUT = (("w1", (3, 3, 3, 10)), ("b1", (10,)), ("a1", (10,)),
@@ -41,10 +50,19 @@ _LAYOUT = (("w1", (3, 3, 3, 10)), ("b1", (10,)), ("a1", (10,)),
            ("wh", (32, 6)), ("bh", (6,)))
 
 
+def weight_count(dtype):
+    """Length of ``pack_weights(pnet, dtype)``: NWEIGHTS for bfloat16,
+    NPLAIN otherwise."""
+    return NWEIGHTS if dtype == torch.bfloat16 else NPLAIN
+
+
 def pack_weights(pnet, dtype):
-    """PNet module -> the kernel's float32 weight vector [NWEIGHTS]. Conv and
-    head weights are rounded to ``dtype`` (they are conv operands); biases
-    and PReLU slopes stay float32, as the JAX kernel's packing keeps them."""
+    """PNet module -> the kernel's float32 weight vector [weight_count(dtype)]:
+    the plain weights (conv kernels HWIO, heads [32, 6]), then for bfloat16
+    ``tc_fragments`` of them, which only the tensor-core kernel reads. Conv
+    and head weights are rounded to ``dtype`` (they are conv operands);
+    biases and PReLU slopes stay float32, as the JAX kernel's packing keeps
+    them."""
     rnd = lambda t: t.detach().to(dtype).float()
     hwio = lambda conv: rnd(conv.weight).permute(2, 3, 1, 0)
     heads = torch.cat([rnd(pnet.reg.weight)[:, :, 0, 0],
@@ -54,7 +72,55 @@ def pack_weights(pnet, dtype):
         parts += [hwio(unit.conv), unit.conv.bias.detach().float(),
                   unit.prelu.alpha.detach().float()]
     parts += [heads, torch.cat([pnet.reg.bias, pnet.cls.bias]).detach().float()]
-    return torch.cat([p.reshape(-1) for p in parts]).contiguous()
+    plain = torch.cat([p.reshape(-1) for p in parts])
+    if dtype != torch.bfloat16:
+        return plain.contiguous()
+    return torch.cat([plain, tc_fragments(_unpack(plain))]).contiguous()
+
+
+def packed_weights(pnet, dtype, device):
+    """``pack_weights(pnet, dtype)`` on ``device``, packed once and kept on
+    the module until one of its parameters is replaced or written."""
+    stamp = tuple((p.data_ptr(), p._version) for p in pnet.parameters())
+    cache = pnet.__dict__.setdefault("_packed_weights", {})
+    key = (dtype, torch.device(device))
+    hit = cache.get(key)
+    if hit is None or hit[0] != stamp:
+        hit = cache[key] = (stamp, pack_weights(pnet, dtype).to(device))
+    return hit[1]
+
+
+def gemm_matrices(p):
+    """The B matrices [K, N] of the tensor-core kernel's four products, from
+    ``_unpack``'s parts, in its K order: conv1 K = phase x ky x (4 columns x
+    4 channels) (96; the 4th channel 0), where the even column phase weights
+    columns 0..2 of the 4 it reads and the odd phase columns 1..3; conv2 and
+    conv3 K = tap x 16 input channels (144; conv2's channels 10..15 0), heads
+    K = 32; N padded to 16, 16, 32 and 8 with zero columns."""
+    zeros = lambda *shape: torch.zeros(shape, device=p["w1"].device)
+    w1 = zeros(2, 3, 4, 4, 16)
+    w1[0, :, :3, :3, :10] = p["w1"]
+    w1[1, :, 1:, :3, :10] = p["w1"]
+    w2 = zeros(3, 3, 16, 16)
+    w2[:, :, :10] = p["w2"]
+    wh = zeros(32, 8)
+    wh[:, :6] = p["wh"]
+    return {"w1": w1.reshape(96, 16), "w2": w2.reshape(144, 16),
+            "w3": p["w3"].reshape(144, 32), "wh": wh}
+
+
+def tc_fragments(p):
+    """``gemm_matrices`` as mma.m16n8k16 B fragments, float32 [NFRAG]: per
+    (k16 step, n8 tile), per lane (g, t) = (lane // 4, lane % 4), the
+    matrix rows 2t, 2t+1, 2t+8, 2t+9 of the step in column g of the tile."""
+    rows = torch.tensor([[2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9] for t in range(4)],
+                        device=p["w1"].device)
+    mats = gemm_matrices(p)
+    out = []
+    for name, steps, tiles in _FRAG_TILES:
+        b = mats[name].reshape(steps, 16, tiles, 8)[:, rows]   # [S, t, i, N, g]
+        out.append(b.permute(0, 3, 4, 1, 2).reshape(-1))       # [S, N, g, t, i]
+    return torch.cat(out)
 
 
 def _unpack(weights):
@@ -88,7 +154,7 @@ def pnet_level_plain(frames_u8, level_hw, weights, dtype):
     on ``dtype``-rounded operands, rounding where the kernel rounds."""
     _check_level(frames_u8, level_hw)
     h, w = frames_u8.shape[1:3]
-    p = _unpack(weights.float())
+    p = _unpack(weights.float()[:NPLAIN])
     rnd = lambda t: t.to(dtype).float()
     prelu = lambda v, a: torch.clamp(v, min=0) + a[:, None, None] * torch.clamp(v, max=0)
     conv = lambda x, k, bias: F.conv2d(x, k.permute(3, 2, 0, 1)) + bias[:, None, None]
@@ -115,12 +181,13 @@ def pnet_level(frames_u8, level_hw, weights, dtype):
     ph, pw = _check_level(frames_u8, level_hw)
     if not frames_u8.is_contiguous():
         raise ValueError("frames must be contiguous")
-    if (weights.device != frames_u8.device or weights.dtype != torch.float32
-            or weights.shape != (NWEIGHTS,) or not weights.is_contiguous()):
-        raise ValueError("weights must be a contiguous float32 [%d] tensor on %s"
-                         % (NWEIGHTS, frames_u8.device))
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("compute dtype must be float32 or bfloat16, got %s" % dtype)
+    n = weight_count(dtype)
+    if (weights.device != frames_u8.device or weights.dtype != torch.float32
+            or weights.shape != (n,) or not weights.is_contiguous()):
+        raise ValueError("weights must be a contiguous float32 [%d] tensor on %s"
+                         % (n, frames_u8.device))
     lib = _lib()
     b, h, w = frames_u8.shape[:3]
     sh, sw = level_hw
@@ -128,8 +195,9 @@ def pnet_level(frames_u8, level_hw, weights, dtype):
     reg = torch.empty((b, 4, ph, pw), dtype=dtype, device=dev)
     prob = torch.empty((b, ph, pw), dtype=torch.float32, device=dev)
     # levels with windows wider than 2 are pre-pooled into this scratch
+    # (channels-last RGB0 pixels)
     pooled = (None if pool_windows_le2(level_hw, (h, w))
-              else torch.empty((b, 3, sh, sw), dtype=dtype, device=dev))
+              else torch.empty((b, sh, sw, 4), dtype=dtype, device=dev))
     rc = lib.pnet_level_launch(
         frames_u8.data_ptr(), b, h, w, sh, sw,
         None if pooled is None else pooled.data_ptr(), weights.data_ptr(),
@@ -150,8 +218,10 @@ def _lib():
         lib.pnet_level_launch.argtypes = [p, i, i, i, i, i, p, p, p, p, i, p]
         lib.pnet_level_launch.restype = i
         lib.pnet_weight_count.restype = i
-        if lib.pnet_weight_count() != NWEIGHTS:
-            raise RuntimeError("pnet_level.cu packs %d weights, the wrapper %d"
-                               % (lib.pnet_weight_count(), NWEIGHTS))
+        lib.pnet_plain_weight_count.restype = i
+        if (lib.pnet_weight_count(), lib.pnet_plain_weight_count()) != (NWEIGHTS, NPLAIN):
+            raise RuntimeError("pnet_level.cu packs %d weights (%d plain), the wrapper "
+                               "%d (%d)" % (lib.pnet_weight_count(),
+                                            lib.pnet_plain_weight_count(), NWEIGHTS, NPLAIN))
         lib._typed = True
     return lib
