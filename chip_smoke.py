@@ -468,19 +468,42 @@ def frcnn_params(seed, cls_shift=1.0):
 
 def roi_synthetic_boxes():
     """Boxes on a 1080p frame's 750 x 1333 canvas that every roi table of 3d
-    carries: sqrt(wh) on the level edges (112, 224, 448 and one float32 ulp
-    either side), one box per level, a 1:20 box (k = 11 > 8 samples per bin
-    on P3), a 1 px box and a box running off the canvas."""
+    carries: sqrt(wh) from three float32 ulps below to one above each level
+    edge (112, 224, 448; boxes at the origin, so that w and h are exact),
+    one box per level, a 1:20 box (k = 11 > 8 samples per bin on P3), a 1 px
+    box and a box running off the canvas."""
     out = []
     for v in (112.0, 224.0, 448.0):
-        for s in (np.nextafter(np.float32(v), np.float32(0)), np.float32(v),
-                  np.nextafter(np.float32(v), np.float32(1e9))):
-            out.append([100.0, 120.0, 100.0 + s, 120.0 + s])
+        s = np.float32(v)
+        for _ in range(3):
+            s = np.nextafter(s, np.float32(0))
+        for _ in range(5):
+            out.append([0.0, 0.0, float(s), float(s)])
+            s = np.nextafter(s, np.float32(1e9))
     out += [[40.0, 60.0, 80.0, 100.0], [300.0, 200.0, 460.0, 360.0],
             [500.0, 100.0, 800.0, 400.0], [600.0, 50.0, 1300.0, 740.0],
             [10.0, 300.0, 610.0, 330.0], [700.0, 500.0, 701.0, 501.0],
             [1200.0, 650.0, 1500.0, 900.0]]
     return np.asarray(out, np.float32)
+
+
+def roi_axis_samples(c1, c2, size):
+    """[n] samples of n rois along one axis that lie inside [-1, size],
+    over the 7 bins: k from ``RA.samples_per_bin`` and the coordinates in
+    float32 as the function computes them (``RA._axis_weights``)."""
+    import torch
+
+    from videotofaces_tpu_torch.ops import roi_align as RA
+
+    k = RA.samples_per_bin(c1, c2)
+    bin_size = (c2 - c1) * RA.inv_out()
+    step = bin_size / torch.clamp(k.to(torch.float32), min=1.0)
+    i = torch.arange(RA.OUT_SIZE, dtype=torch.float64)
+    row = (c1.double()[:, None] + i * bin_size.double()[:, None]).float()
+    j = torch.arange(RA.K_MAX)
+    y = row[:, :, None] + (j + 0.5).float() * step[:, None, None]
+    ok = (j < k[:, None, None]) & (y >= -1.0) & (y <= size)
+    return ok.sum((1, 2))
 
 
 def roi_work(boxes, valid, fmap_hw, c, esize):
@@ -494,25 +517,23 @@ def roi_work(boxes, valid, fmap_hw, c, esize):
 
     from videotofaces_tpu_torch.ops import roi_align as RA
 
-    lv = RA.assign_fpn_levels(boxes).cpu().numpy()
-    bx, v = boxes.double().cpu().numpy(), valid.cpu().numpy()
+    lv = RA.assign_fpn_levels(boxes).cpu()
+    bx, v = boxes.float().cpu(), valid.cpu()
     b, r = v.shape
-    cover = [np.zeros((b, h, w), bool) for h, w in fmap_hw]
-    samples = 0
-    for img, k in zip(*np.nonzero(v)):
-        level = lv[img, k]
-        h, w = fmap_hw[level]
-        x1, y1, x2, y2 = bx[img, k] / RA.STRIDES[level] - 0.5
-        cover[level][img, max(int(np.floor(y1)), 0):max(min(int(np.ceil(y2)) + 2, h), 0),
-                     max(int(np.floor(x1)), 0):max(min(int(np.ceil(x2)) + 2, w), 0)] = True
-        per_axis = []
-        for c1, c2, size in ((y1, y2, h), (x1, x2, w)):
-            n = min(int(np.ceil(max(c2 - c1, 0.0) / 7 - 1e-9)), 8)
-            step = (c2 - c1) / 7 / max(n, 1)
-            t = c1 + np.arange(7)[:, None] * (c2 - c1) / 7 + (np.arange(n)[None] + 0.5) * step
-            per_axis.append(((t >= -1) & (t <= size)).sum(1))
-        samples += int(per_axis[0].sum() * per_axis[1].sum())
-    touched = sum(int(m.sum()) for m in cover)
+    touched = samples = 0
+    for level, (h, w) in enumerate(fmap_hw):
+        cover = np.zeros((b, h, w), bool)
+        for img in range(b):
+            idx = torch.nonzero(v[img] & (lv[img] == level)).flatten()
+            if idx.numel() == 0:
+                continue
+            x1, y1, x2, y2 = RA.roi_coords(bx[img, idx], RA.STRIDES[level])
+            samples += int((roi_axis_samples(y1, y2, h) * roi_axis_samples(x1, x2, w)).sum())
+            for fy1, fx1, fy2, fx2 in zip(y1.tolist(), x1.tolist(), y2.tolist(), x2.tolist()):
+                ys = slice(max(int(np.floor(fy1)), 0), max(min(int(np.ceil(fy2)) + 2, h), 0))
+                xs = slice(max(int(np.floor(fx1)), 0), max(min(int(np.ceil(fx2)) + 2, w), 0))
+                cover[img, ys, xs] = True
+        touched += int(cover.sum())
     nbytes = touched * c * esize + b * r * (49 * c * 4 + 16 + 4 + 1)
     return nbytes, samples * c * 8 + b * r * 49 * c
 
@@ -802,6 +823,8 @@ def main():
         priors = [torch.from_numpy(p).to(dev) for p in get_priors(
             canvas, R.frcnn_bases(), loc="corner", concat=False)]
         synth = torch.from_numpy(roi_synthetic_boxes()).to(dev)
+        for fn, regs, spills in ptxas_summary(_cuda.ptxas_log("roi_align.cu")):
+            log("   roi_align.cu %s: %s; %s" % (fn, regs, spills))
         roi_entry = None
         for dtype, prec in ((torch.float32, "highest"), (torch.bfloat16, "default")):
             name = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -827,7 +850,8 @@ def main():
             torch.cuda.synchronize()
             amax = max(float(f.float().abs().max()) for f in fmaps)
             err = (got - want).abs().max().item()
-            # same weights on both sides; per-tap against per-row float32 sums
+            # same weights on both sides; float32 sums in another order (the
+            # kernel's fma chains, cuBLAS in the plain version)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * amax)
             assert (got[~valid] == 0).all()
             del got, want

@@ -292,19 +292,22 @@ def _roi_inputs(seed, dtype, b=2, r=300, c=256):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [256, 6])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_roi_align_kernel_matches_plain(dtype):
+def test_roi_align_kernel_matches_plain(dtype, c):
     """K4 against the plain dense method on the same levels (bf16 levels are
-    read as float32 by both): the weights are the same, the sums are taken
-    per tap in the kernel and per weight row in the plain version, so they
-    agree to float32 rounding: rtol 1e-5, atol 1e-5 x max|feature|."""
+    read as float32 by both): the weights are the same, and both take
+    float32 sums of rows, then of columns, the kernel in fma chains and the
+    plain version through cuBLAS, so they agree to float32 rounding: rtol
+    1e-5, atol 1e-5 x max|feature|. C = 6 is no multiple of 4: the kernel
+    then loads one channel at a time."""
     _need_cuda()
-    fmaps, boxes, valid = _roi_inputs(7, dtype)
+    fmaps, boxes, valid = _roi_inputs(7, dtype, c=c)
     n0 = RAK.roi_align_cuda.launches
     got, dropped, kept, truncated = RA.roi_align_fpn(fmaps, boxes, valid)
     torch.cuda.synchronize()
     assert RAK.roi_align_cuda.launches == n0 + 1
-    assert got.shape == (2, 300, 7, 7, 256) and got.dtype == torch.float32
+    assert got.shape == (2, 300, 7, 7, c) and got.dtype == torch.float32
     assert dropped.tolist() == [0, 0] and truncated.tolist() == [0, 0]
     assert torch.equal(kept, valid)
     want = RA.roi_align_fpn_plain(fmaps, boxes, valid)
@@ -316,14 +319,16 @@ def test_roi_align_kernel_matches_plain(dtype):
 
 @pytest.mark.cuda
 def test_roi_align_kernel_all_invalid_and_empty():
-    """Slots that are not valid come out zero (one launch); an empty roi
-    table launches nothing and is not counted."""
+    """Slots that are not valid come out zero (one launch), from float32 and
+    bfloat16 levels; an empty roi table launches nothing and is not
+    counted."""
     _need_cuda()
-    fmaps, boxes, valid = _roi_inputs(8, torch.bfloat16, r=40)
-    n0 = RAK.roi_align_cuda.launches
-    got = RA.roi_align_fpn(fmaps, boxes, torch.zeros_like(valid))[0]
-    torch.cuda.synchronize()
-    assert RAK.roi_align_cuda.launches == n0 + 1 and (got == 0).all()
+    for dtype in (torch.float32, torch.bfloat16):
+        fmaps, boxes, valid = _roi_inputs(8, dtype, r=40)
+        n0 = RAK.roi_align_cuda.launches
+        got = RA.roi_align_fpn(fmaps, boxes, torch.zeros_like(valid))[0]
+        torch.cuda.synchronize()
+        assert RAK.roi_align_cuda.launches == n0 + 1 and (got == 0).all()
     empty = RA.roi_align_fpn(fmaps, boxes[:, :0].contiguous(), valid[:, :0].contiguous())[0]
     assert empty.shape == (2, 0, 7, 7, 256) and RAK.roi_align_cuda.launches == n0 + 1
     lv = RA.assign_fpn_levels(boxes).to(torch.int32)
@@ -334,3 +339,89 @@ def test_roi_align_kernel_all_invalid_and_empty():
                            + fmaps[1:], boxes, lv, valid, RA.STRIDES)
     with pytest.raises(ValueError):                     # float16 levels
         RAK.roi_align_cuda([f.half() for f in fmaps], boxes, lv, valid, RA.STRIDES)
+
+
+def _one_hot_levels(rng, b, sizes, c, dtype):
+    """Levels whose channel c is 1.0 at one seeded pixel (y_c, x_c) of each
+    image and 0 elsewhere: a pooled value is then one weight product."""
+    out = []
+    for h, w in sizes:
+        f = np.zeros((b, h, w, c), np.float32)
+        for img in range(b):
+            f[img, rng.integers(0, h, c), rng.integers(0, w, c), np.arange(c)] = 1.0
+        out.append(torch.from_numpy(f).cuda().to(dtype))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_roi_align_kernel_weight_tables_exact(dtype):
+    """One-hot levels pin the kernel's weight tables: out[i, j, c] =
+    wy[i, y_c] * wx[j, x_c], one rounding on both sides, so the kernel
+    equals the plain version (weights of _axis_weights; TF32 off) exactly."""
+    _need_cuda()
+    rng = np.random.default_rng(11)
+    _, boxes, valid = _roi_inputs(11, dtype)
+    fmaps = _one_hot_levels(rng, 2, [(48, 84), (24, 42), (12, 21), (6, 11)], 256, dtype)
+    got = RA.roi_align_fpn(fmaps, boxes, valid)[0]
+    with config.precision_scope("highest"):
+        want = RA.roi_align_fpn_plain(fmaps, boxes, valid)
+    torch.cuda.synchronize()
+    assert int((want != 0).sum()) > 10000          # many one-hot pixels fall in windows
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _ulps(v, n):
+    """The float32 n ulps from v (below for n < 0)."""
+    x = np.float32(v)
+    for _ in range(abs(n)):
+        x = np.nextafter(x, np.float32(np.sign(n) * 1e9))
+    return float(x)
+
+
+# boxes [R, 4] on a 768 x 1344 canvas (P2 192 x 336 .. P5 24 x 42), one
+# table per case; both images carry it
+_ROI_CASES = {
+    # hundreds of columns on P2, k = 48 > 8 samples per bin along x; the
+    # transposed box, k = 28 along y
+    "long_1333x5": [[5, 100, 1338, 105], [100, 5, 105, 763]],
+    "1px": [[700, 500, 701, 501], [0, 0, 1, 1], [1343, 767, 1344, 768]],
+    # samples below -1 and past S; the third box lies wholly left of the
+    # canvas, the fourth wholly above it
+    "off_canvas": [[-100, -50, 60, 40], [1300, 700, 1500, 900], [-400, 300, -10, 500],
+                   [1200, -300, 1400, -50]],
+    # samples reach the last row and column (weight 1 there)
+    "clamp": [[1200, 650, 1344, 768], [1000, 600, 1344, 768], [0, 0, 1344, 768]],
+    # sqrt(wh) from three float32 ulps below to one above 112, 224 and 448:
+    # the level moves up at 112 and 224 less one ulp, 448 less two
+    "level_edges": [[0.0, 0.0, _ulps(v, n), _ulps(v, n)]
+                    for v in (112.0, 224.0, 448.0) for n in (-3, -2, -1, 0, 1)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_ROI_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_roi_align_kernel_edge_cases(case, dtype):
+    """K4 against the plain version on rois at the edges of the function's
+    domain, at the tolerance of test_roi_align_kernel_matches_plain."""
+    _need_cuda()
+    rng = np.random.default_rng(12)
+    c = 256
+    fmaps = [torch.from_numpy(rng.normal(0, 1, (2, h, w, c)).astype(np.float32)).cuda().to(dtype)
+             for h, w in [(192, 336), (96, 168), (48, 84), (24, 42)]]
+    boxes = torch.tensor(_ROI_CASES[case], dtype=torch.float32).cuda()
+    boxes = boxes[None].repeat(2, 1, 1).contiguous()
+    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device="cuda")
+    n0 = RAK.roi_align_cuda.launches
+    got = RA.roi_align_fpn(fmaps, boxes, valid)[0]
+    want = RA.roi_align_fpn_plain(fmaps, boxes, valid)
+    torch.cuda.synchronize()
+    assert RAK.roi_align_cuda.launches == n0 + 1
+    amax = max(float(f.float().abs().max()) for f in fmaps)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * amax)
+    if case == "level_edges":
+        assert RA.assign_fpn_levels(boxes[0]).view(3, 5).tolist() == [
+            [0, 0, 1, 1, 1], [1, 1, 2, 2, 2], [2, 3, 3, 3, 3]]
+    else:
+        assert (got != 0).any()
