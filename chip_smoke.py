@@ -53,7 +53,23 @@ any failed, printing no result line):
    k. ``video_to_faces(input_path, out_dir)`` with every other argument at
       its default — the anime path: Faster R-CNN, ViT-B16, embedding dedup,
       K-means, with the seeded random weights of a missing checkpoint, which
-      find faces in 1080p frames — on a synthetic 1080p video (K4 launches).
+      find faces in 1080p frames — on a synthetic 1080p video (K4 launches);
+   l. ``YoloDetector(params=seeded, bf16=True)``, precision "default", on
+      two seeded 1080p frames (canvas 352 x 608): ms per batch, the valid
+      candidates entering NMS per image, device busy share and time by
+      kernel; once with the seeded weights (every candidate passes the
+      thresholds: the worst case) and once with ``bench.py::_sparsify``'s
+      recipe (objectness biases -4);
+   m. ``YoloDetector`` f32 "highest" on the card against the same detector
+      on the CPU at ``max_side`` 320: detections matched at IoU >= 0.99;
+   n. ``video_to_faces(input_path, out_dir, style="live")`` with its
+      defaults — YOLOv3 (seeded, face biases +2, through the factory),
+      FaceNet-VGG (seeded, calibrated), hash and embedding dedup, K-means —
+      on a synthetic 1080p video (wall time, stage timings).
+
+The YOLO path (4l-4n) runs no hand-written kernel: its convolutions are
+cuDNN's and its resize the matrix products of ``ops/resize.py``; its
+launch counts are printed all the same.
 
 Its last two lines are a JSON object listing every kernel with its launches,
 error and times, and ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -466,6 +482,102 @@ def frcnn_params(seed, cls_shift=1.0):
     return unflatten(flat)
 
 
+def yolo_params(seed, obj_shift=0.0, cls_shift=0.0, reg_scale=0.1):
+    """YOLOv3 {"backbone", "neck", "head"} tree in the JAX package's layout,
+    the recipe of the port's parity tests (tests/test_torch_yolo.py) drawn
+    in the port's key order: kernels N(0, 1.6/fan_in) (the heads'
+    regression columns x ``reg_scale``), BatchNorm scale 1 + N(0, 0.1) (x
+    0.2 on each residual block's second unit), var 0.8 + |N| * 0.2, biases
+    and means N(0, 0.1); the heads' objectness and class biases shifted by
+    ``obj_shift`` and ``cls_shift``."""
+    import torch
+
+    from videotofaces_tpu_torch.models.yolo import YOLOv3
+    from videotofaces_tpu_torch.utils.weights import unflatten
+
+    with torch.device("meta"):
+        model = YOLOv3()
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for key, shape in sorted(jax_layout_shapes(model).items()):
+        keys = key.split("/")
+        name = keys[-1]
+        x = rng.normal(0.0, 1.0, shape)
+        if name == "kernel":
+            x *= np.sqrt(1.6 / np.prod(shape[:-1]))
+            if keys[-2].startswith("pred"):
+                x[..., (np.arange(shape[-1]) % 6) < 4] *= reg_scale
+        elif name == "var":
+            x = np.abs(x) * 0.2 + 0.8
+        elif name == "scale":
+            x = (0.2 if keys[-3] == "conv2" and "_res" in keys[-4] else 1.0) * (1.0 + 0.1 * x)
+        else:
+            x *= 0.1
+            if keys[-2].startswith("pred") and name == "bias":
+                x[4::6] += obj_shift
+                x[5::6] += cls_shift
+        flat[key] = x.astype(np.float32)
+    return unflatten(flat)
+
+
+def yolo_candidates(det, batch):
+    """Per image of ``batch``: the candidates that pass the score thresholds
+    and the valid slots that enter NMS (at most ``pre_topk`` = 1,000); D,
+    the candidates on the canvas; and the batch's convolution operations
+    (2 x multiply-adds) — the detector's preprocess, network and selection
+    run again outside the timed calls."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.models import yolo as Y
+
+    h, w = batch[0].shape[:2]
+    resized, canvas, priors, _ = det._geometry(h, w)
+    x = torch.from_numpy(np.stack(batch)).to(det.device)
+    flops = []
+    hooks = [m.register_forward_hook(lambda mod, i, o: flops.append(
+        2 * o.numel() * mod.weight[0].numel()))
+        for m in det.model.modules() if isinstance(m, torch.nn.Conv2d)]
+    with config.model_call(), torch.inference_mode():
+        maps = [m.float() for m in det.model(Y.preprocess(x, resized, canvas,
+                                                          det.compute_dtype))]
+        vals, _, _ = Y.select_candidates(maps, pre_topk=priors.shape[0])
+    for hk in hooks:
+        hk.remove()
+    passing = (vals > 0).sum(1).tolist()
+    return passing, [min(n, 1000) for n in passing], priors.shape[0], sum(flops)
+
+
+def matched_share(a, b, iou=0.99):
+    """Share of the boxes of ``a`` that a box of ``b`` overlaps at IoU >= iou."""
+    import torch
+
+    from videotofaces_tpu_torch.ops.boxes import box_iou_matrix
+
+    if len(a) == 0:
+        return 1.0
+    if len(b) == 0:
+        return 0.0
+    m = box_iou_matrix(torch.from_numpy(a), torch.from_numpy(b)).max(1).values
+    return float((m >= iou).float().mean())
+
+
+@contextlib.contextmanager
+def patched_factories(**factories):
+    """Route ``video_to_faces``'s model factories (``get_detector_model``,
+    ``get_encoder_model`` of the port's api module) to ``factories``."""
+    from videotofaces_tpu_torch import api
+
+    saved = {name: getattr(api, name) for name in factories}
+    for name, fn in factories.items():
+        setattr(api, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(api, name, fn)
+
+
 def roi_synthetic_boxes():
     """Boxes on a 1080p frame's 750 x 1333 canvas that every roi table of 3d
     carries: sqrt(wh) from three float32 ulps below to one above each level
@@ -588,11 +700,11 @@ def write_video(path, frames, fps):
     vw.release()
 
 
-def profile_batch(det, batch):
+def profile_batch(det, batch, top=15):
     """Where the time goes: one more batch under torch.profiler — device
-    kernel time by name, and the device's busy and idle share of the
-    batch's wall time. A measurement aid: a profiler that yields nothing
-    is reported, not failed."""
+    kernel time by name (the ``top`` largest), and the device's busy and
+    idle share of the batch's wall time. A measurement aid: a profiler that
+    yields nothing is reported, not failed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -612,7 +724,7 @@ def profile_batch(det, batch):
     dev_ms = sum(self_dev(e) for e in evs) / 1e3
     log("   profiled batch: wall %.2f ms, device kernels %.2f ms, busy %.1f%%, "
         "idle %.1f%%" % (wall, dev_ms, 100 * dev_ms / wall, 100 - 100 * dev_ms / wall))
-    for e in sorted(evs, key=lambda e: -self_dev(e))[:15]:
+    for e in sorted(evs, key=lambda e: -self_dev(e))[:top]:
         log("     %8.3f ms  x%-5d %s" % (self_dev(e) / 1e3, e.count, e.key[:100]))
 
 
@@ -1224,6 +1336,101 @@ def main():
                 % (time.perf_counter() - t0, len(faces), launches))
             assert launches["roi_align"] > 0, launches
             assert faces, "the anime path found no faces"
+
+    with phase("4l. main path: YoloDetector(bf16=True), precision default, B=2 1080p"):
+        from videotofaces_tpu_torch.models.wrappers import YoloDetector
+
+        config.set_precision("default")
+        batch = list(frames_np)
+        for label, params in (("seeded weights, the worst case", yolo_params(0)),
+                              ("bench.py::_sparsify recipe, objectness biases -4",
+                               yolo_params(0, obj_shift=-4.0))):
+            log("   -- %s" % label)
+            det = YoloDetector(params=params, bf16=True)
+            assert det.device.type == "cuda"
+            for _ in range(2):
+                det(batch)                                   # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            iters, times = 5, []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                boxes, scores, classes = det.collect(det.submit(batch))
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = read_launches()
+            log("   detector ms per batch of %d: mean %.2f, min %.2f, all %s"
+                % (B, np.mean(times), np.min(times), ["%.2f" % t for t in times]))
+            log("   launches over %d batches: %s (the YOLO path runs no hand-written "
+                "kernel)" % (iters, launches))
+            passing, entering, d, ops = yolo_candidates(det, batch)
+            log("   candidates per image: %s of D = %d pass the thresholds; valid slots "
+                "entering NMS %s" % (passing, d, entering))
+            bnd, by = bound_ms(sum(p.numel() * p.element_size() for p in det.model.parameters())
+                               + frames_np.nbytes, ops, "bfloat16")
+            log("   bound: %.1f GFLOP of convolutions per batch -> %.4f ms (%s; bf16 peak)"
+                % (ops / 1e9, bnd, by))
+            log("   detections per frame: %s, scores %s" % (
+                [len(b) for b in boxes],
+                ["%.3f-%.3f" % (s.min(), s.max()) for s in scores if len(s)]))
+            assert len(boxes) == B and d == 13167
+            for b, sc in zip(boxes, scores):
+                assert b.shape[1] == 4 and np.isfinite(b).all() and np.isfinite(sc).all()
+            profile_batch(det, batch, top=10)
+            del det
+
+    with phase("4m. YoloDetector f32 'highest': the card vs the CPU, max_side 320, "
+               "B=2 1080p"):
+        from videotofaces_tpu_torch.models.wrappers import YoloDetector
+
+        params = yolo_params(0)
+        batch = list(frames_np)
+        with config.precision_scope("highest"):
+            got = YoloDetector(params=params, max_side=320)(batch)
+            t0 = time.perf_counter()
+            want = YoloDetector(device="cpu", params=params, max_side=320)(batch)
+            log("   CPU detector: %.2f s for the batch" % (time.perf_counter() - t0))
+        for i in range(B):
+            gb, wb = got[0][i], want[0][i]
+            shares = matched_share(gb, wb), matched_share(wb, gb)
+            n = min(len(gb), len(wb))
+            log("   image %d: %d detections on the card, %d on the CPU; matched at IoU >= "
+                "0.99: %.3f / %.3f; max|score diff| over the first %d %.3g"
+                % (i, len(gb), len(wb), shares[0], shares[1], n,
+                   np.abs(got[1][i][:n] - want[1][i][:n]).max()))
+            assert len(wb) > 5 and abs(len(gb) - len(wb)) <= 1
+            assert min(shares) >= 0.98, shares
+
+    with phase("4n. video_to_faces(style='live') with its defaults (YOLOv3 + FaceNet-VGG, "
+               "full) on a synthetic 1080p video"):
+        from videotofaces_tpu_torch import video_to_faces
+        from videotofaces_tpu_torch.pipeline.detection import get_detector_model
+        from videotofaces_tpu_torch.pipeline.grouping import get_encoder_model
+
+        config.set_precision("highest")
+        det_params = yolo_params(0, obj_shift=2.0, cls_shift=2.0, reg_scale=0.6)
+        enc_params = facenet_params(5, dev)
+        with tempfile.TemporaryDirectory() as tmp, patched_factories(
+                get_detector_model=lambda style, det, d: get_detector_model(
+                    style, det, d, params=det_params),
+                get_encoder_model=lambda style, enc, d: get_encoder_model(
+                    style, enc, d, params=enc_params)):
+            path = osp.join(tmp, "synthetic_1080p.mp4")
+            write_video(path, seeded_frames(23, b=16), 4.0)
+            out_dir = osp.join(tmp, "out")
+            os.makedirs(out_dir)
+            reset_launches()
+            t0 = time.perf_counter()
+            video_to_faces(input_path=path, out_dir=out_dir, style="live")
+            torch.cuda.synchronize()
+            faces_dir = osp.join(out_dir, "faces")
+            groups = sorted(g for g in os.listdir(faces_dir)
+                            if osp.isdir(osp.join(faces_dir, g)))
+            faces = [f for _, _, fs in os.walk(faces_dir) for f in fs if f.endswith(".jpg")]
+            log("   live full run in %.2f s: %d face images kept in groups %s; launches %s"
+                % (time.perf_counter() - t0, len(faces), groups, read_launches()))
+            assert faces, "the live path found no faces"
+            assert len(groups) >= 2 and all(os.listdir(osp.join(faces_dir, g))
+                                            for g in groups), "faces were not clustered"
 
     if failures:
         print("chip_smoke: %d phase(s) failed:\n  %s" % (len(failures),

@@ -15,11 +15,13 @@ import torch
 
 from videotofaces_tpu_torch import config
 from videotofaces_tpu_torch.models import mtcnn as TM
+from videotofaces_tpu_torch.models import yolo as TY
 from videotofaces_tpu_torch.ops import crops_kernel as CK
 from videotofaces_tpu_torch.ops import pnet_kernel as PK
 from videotofaces_tpu_torch.ops import resize_kernel as RK
 from videotofaces_tpu_torch.ops import roi_align as RA
 from videotofaces_tpu_torch.ops import roi_align_kernel as RAK
+from videotofaces_tpu_torch.ops.boxes import box_iou_matrix
 from videotofaces_tpu_torch.utils.weights import unflatten
 
 # float32: accumulation order only (fma chains in the kernel, cuDNN in the
@@ -231,6 +233,68 @@ def test_cascade_kernel_path_matches_plain_path():
                                    rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(got[0][i].cpu()[gv[i]], want[0][i][wv[i]],
                                    rtol=1e-3, atol=2e-2)
+
+
+def _seeded_yolo(seed, reg_scale=0.1):
+    """YOLOv3 with numpy-seeded weights, the recipe of the port's JAX-parity
+    tests drawn in the port's key order: conv weights N(0, 1.6/fan_in) (the
+    heads' regression rows x ``reg_scale``), BatchNorm scale 1 + N(0, 0.1)
+    (0.2x on each residual block's second unit), var 0.8 + |N| * 0.2,
+    biases and means N(0, 0.1)."""
+    model = TY.YOLOv3()
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, val in model.state_dict().items():
+        parts, shape = key.split("."), tuple(val.shape)
+        if parts[-1] == "num_batches_tracked":
+            sd[key] = val
+            continue
+        x = rng.normal(0.0, 1.0, shape)
+        if parts[-1] == "weight" and len(shape) == 4:
+            x *= np.sqrt(1.6 / np.prod(shape[1:]))
+            if parts[-2].startswith("pred"):
+                x[(np.arange(shape[0]) % 6) < 4] *= reg_scale
+        elif parts[-1] == "running_var":
+            x = np.abs(x) * 0.2 + 0.8
+        elif parts[-1] == "weight":
+            x = (0.2 if parts[-3] == "conv2" and "_res" in parts[-4] else 1.0) * (1.0 + 0.1 * x)
+        else:
+            x *= 0.1
+        sd[key] = torch.from_numpy(x.astype(np.float32))
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def _matched(a, b, iou=0.99):
+    """Share of the boxes of ``a`` that a box of ``b`` overlaps at IoU >= iou."""
+    if len(a) == 0:
+        return 1.0
+    return float((box_iou_matrix(a, b).max(1).values >= iou).float().mean()) if len(b) else 0.0
+
+
+@pytest.mark.cuda
+def test_yolo_card_matches_cpu():
+    """YOLOv3's full forward in float32 / "highest" (no TF32) on the card
+    (cuDNN) against the same model on the CPU: 2 frames of 180 x 320 at
+    max_side 160 (canvas 96 x 160). The detections must match at IoU >=
+    0.99 both ways, with scores within 1e-4 of the CPU's."""
+    _need_cuda()
+    model = _seeded_yolo(2)
+    frames = _frames(2, 180, 320, 6)
+    resized = TY.resized_shape(180, 320, 160)
+    canvas = TY.canvas_shape(*resized)
+    priors, strides = (torch.from_numpy(a) for a in TY.flat_priors_and_strides(canvas))
+    with config.precision_scope("highest"), torch.no_grad():
+        got = TY.full_forward(model.cuda(), frames, resized, canvas, priors.cuda(),
+                              strides.cuda())
+        want = TY.full_forward(model.cpu(), frames.cpu(), resized, canvas, priors, strides)
+    assert got[4].tolist() == [0, 0] == want[4].tolist()
+    for i in range(2):
+        gv, wv = got[3][i].cpu(), want[3][i]
+        gb, wb = got[0][i].cpu()[gv], want[0][i][wv]
+        assert len(wb) > 5 and len(gb) == len(wb)
+        assert _matched(gb, wb) == 1.0 and _matched(wb, gb) == 1.0
+        torch.testing.assert_close(got[1][i].cpu()[gv], want[1][i][wv], rtol=0, atol=1e-4)
 
 
 def _packed_crops(seed, shapes, max_size=256):

@@ -157,3 +157,47 @@ def test_device_none_means_the_card(monkeypatch, blobs):
         KM.kmeans_fit(blobs, 3)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         CS.silhouette_score(blobs, np.zeros(len(blobs), int), 2)
+
+
+def test_hash_dedup_without_native_library_uses_the_device_gram(monkeypatch, tmp_path):
+    """N = 300 > 256 hashes with planted near-duplicates and the native
+    library unavailable: the all-pairs hash dedup runs ``dedup_hash`` on the
+    given device (never the O(N^2) python loop) and equals the JAX
+    package's ``_nearest_earlier`` and the native path; ``remove_dupes_overall``
+    keeps the same names as the JAX package's."""
+    from videotofaces_tpu import specs as JS
+    from videotofaces_tpu.pipeline import dupes as JDUP
+    from videotofaces_tpu_torch import specs as TS
+    from videotofaces_tpu_torch.pipeline import dupes as TDUP
+    from videotofaces_tpu_torch.utils import native as TNV
+
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2, (300, 64)).astype(np.uint8)
+    for i in rng.choice(np.arange(20, 300), 40, replace=False):   # near-duplicates
+        bits[i] = bits[rng.integers(0, i)]
+        bits[i, rng.choice(64, rng.integers(0, 6), replace=False)] ^= 1
+    packed = TNV.pack_bits(bits)
+    names = ["f%03d.jpg" % i for i in range(len(packed))]
+    native = TNV.hamming_nearest_earlier(packed)
+    jax_mins, jax_inds = JDUP._nearest_earlier(packed, "hash")
+    jax_kept = JDUP.remove_dupes_overall(packed, names, "hash", 4,
+                                         JS.OutputLayout(str(tmp_path / "jax")))[1]
+
+    def python_loop(_):
+        raise AssertionError("the python O(N^2) loop ran")
+
+    devices = []
+    gram = D.dedup_hash
+    monkeypatch.setattr(TNV, "available", lambda: False)
+    monkeypatch.setattr(TNV, "hamming_nearest_earlier", python_loop)
+    monkeypatch.setattr(D, "dedup_hash", lambda x: devices.append(x.device) or gram(x))
+    mins, inds = TDUP._nearest_earlier(packed, "hash", "cpu")
+    assert devices == [torch.device("cpu")]
+    for want_mins, want_inds in ((jax_mins, jax_inds), native):
+        np.testing.assert_array_equal(mins[1:], np.asarray(want_mins)[1:])
+        np.testing.assert_array_equal(inds[1:], np.asarray(want_inds)[1:])
+    assert (mins[1:] <= 4).sum() >= 30
+    kept = TDUP.remove_dupes_overall(packed, names, "hash", 4,
+                                     TS.OutputLayout(str(tmp_path / "port")), "cpu")[1]
+    assert kept == jax_kept and len(kept) < len(names) - 30
+    assert len(devices) == 2

@@ -3,11 +3,12 @@ chip_smoke.py) imports JAX, flax or the JAX package, and the port's entry
 points run on the card unless the caller asks for the CPU."""
 
 import ast
-import os.path as osp
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -120,16 +121,57 @@ def test_precision_policy_sets_tf32_flags():
         config.set_precision(saved)
 
 
-def test_out_of_slice_requests_raise(tmp_path):
-    from videotofaces_tpu_torch import video_to_faces
+def test_model_call_runs_under_its_threads_precision():
+    """Thread A holds ``precision_scope("default")`` (TF32 on) while thread
+    B, under the process default "highest", runs a detector: B's forward
+    sees TF32 off, and A's flags are back once B's call returns."""
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.models.wrappers import YoloDetector
 
-    video = tmp_path / "v.mp4"
-    video.write_bytes(b"")
-    for kw in (dict(mode="full", style="live"),                  # live default: yolo
-               dict(mode="detection", style="live"),
-               dict(mode="full", style="live", enc_model="vit_b"),
-               dict(mode="detection", style="anime", det_model="yolo"),
-               dict(mode="detection", style="live", det_model="yolo")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            video_to_faces(input_path=str(video), out_dir=str(tmp_path), device="cpu", **kw)
-    assert osp.isdir(tmp_path)
+    det = YoloDetector(device="cpu", max_side=32)
+    seen = []
+    det.model.register_forward_pre_hook(lambda mod, args: seen.append(config._tf32_flags()))
+    opened, release = threading.Event(), threading.Event()
+    after_b = []
+
+    def thread_a():
+        with config.precision_scope("default"):
+            opened.set()
+            release.wait(120)
+            after_b.append(config._tf32_flags())
+
+    frames = [np.zeros((32, 32, 3), np.uint8)] * 2
+    ta = threading.Thread(target=thread_a)
+    ta.start()
+    try:
+        assert opened.wait(120)
+        assert config._tf32_flags() == (True, True)
+        tb = threading.Thread(target=lambda: det(frames))
+        tb.start()
+        tb.join(120)
+    finally:
+        release.set()
+        ta.join(120)
+    assert config.get_precision_name() == "highest"
+    assert seen == [(False, False)]
+    assert after_b == [(True, True)]
+    assert config._tf32_flags() == (False, False)
+
+
+def test_out_of_slice_requests_raise():
+    """The detectors the port runs route by name under both styles, YOLO
+    (the live default) included; a detector outside them raises."""
+    from videotofaces_tpu_torch.models.wrappers import MtcnnDetector, YoloDetector
+    from videotofaces_tpu_torch.pipeline import detection as DET
+
+    for style in ("live", "anime"):
+        det = DET.get_detector_model(style, "yolo", "cpu", max_side=32)
+        assert isinstance(det, YoloDetector) and det.device.type == "cpu"
+        assert DET.resolve_det_model(style, "mtcnn") == "mtcnn"
+        assert DET.resolve_det_model(style, "rcnn") == "rcnn"
+    assert DET.resolve_det_model("live", "default") == "yolo"
+    assert DET.resolve_det_model("anime", "default") == "rcnn"
+    assert isinstance(DET.get_detector_model("live", "mtcnn", "cpu"), MtcnnDetector)
+    for style in ("live", "anime"):
+        with pytest.raises(ValueError, match="unknown det_model"):
+            DET.get_detector_model(style, "retinaface", "cpu")

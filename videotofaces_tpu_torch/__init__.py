@@ -4,15 +4,14 @@ Same public contract as the JAX package (``video_to_faces`` and the CLI),
 running on one NVIDIA GPU; the hot kernels are hand-written CUDA C++ for
 Hopper (``csrc/``). The port grows slice by slice (ROADMAP.md): it runs the
 anime path (Faster R-CNN + ViT, the API's defaults) and the live-action path
-with the MTCNN detector and FaceNet end to end — detection, embeddings,
-embedding dedup and K-means grouping or reference classification
-(``mode="full" | "detection" | "grouping"``). The YOLO detector is not
-ported yet.
+(YOLOv3, its default, or the MTCNN detector, with FaceNet) end to end —
+detection, embeddings, embedding dedup and K-means grouping or reference
+classification (``mode="full" | "detection" | "grouping"``).
 
-Pipeline: host video decode -> batched on-device detector (Faster R-CNN or
-the MTCNN cascade) -> box filter/expand/square -> crop & save -> hash dedup
--> ViT or FaceNet embeddings -> embedding dedup -> K-means with silhouette
-selection (or classification).
+Pipeline: host video decode -> batched on-device detector (YOLOv3, Faster
+R-CNN or the MTCNN cascade) -> box filter/expand/square -> crop & save ->
+hash dedup -> ViT or FaceNet embeddings -> embedding dedup -> K-means with
+silhouette selection (or classification).
 """
 
 from .api import video_to_faces  # noqa: F401

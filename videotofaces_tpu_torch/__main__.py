@@ -54,7 +54,7 @@ def build_parser():
                    help='"opencv" (default) or "decord" for decoding')
     p.add_argument("--det-model", metavar="TEXT", default="default",
                    help='"yolo"/"mtcnn" for live, "rcnn" for anime; "default" picks per style '
-                        '(rcnn for anime; yolo, not ported yet, for live)')
+                        '(rcnn for anime, yolo for live)')
     p.add_argument("--det-batch-size", metavar="INT", type=int, default=4,
                    help="frames per detector forward pass")
     p.add_argument("--det-min-score", metavar="FLOAT", type=float, default=0.4,

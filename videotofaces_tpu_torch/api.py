@@ -9,10 +9,9 @@ small private runner. ``device`` is real here: None means the CUDA card
 (and raises without one), ``"cpu"`` runs the plain versions of the kernels
 on the CPU.
 
-The port runs the Faster R-CNN and MTCNN detectors and the ViT and FaceNet
-encoders, so the defaults (``style="anime"``: Faster R-CNN + ViT-B16) run;
-the YOLO detector (and with it ``style="live"``'s default detector) raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it. The JAX
+The port runs the YOLOv3, Faster R-CNN and MTCNN detectors and the ViT and
+FaceNet encoders, so both styles run with their defaults (``style="anime"``:
+Faster R-CNN + ViT-B16; ``style="live"``: YOLOv3 + FaceNet-VGG). The JAX
 package's multi-host sharding is not ported.
 """
 
@@ -110,7 +109,7 @@ def video_to_faces(input_path=None, input_ext=None,
 
     detecting = mode in ('full', 'detection')
     grouping = mode in ('full', 'grouping')
-    # a model the port has not ported (YOLO) raises before anything runs
+    # resolve the model names before anything runs
     if detecting:
         det_model = resolve_det_model(style, det_model)
     if grouping:

@@ -11,11 +11,17 @@ on the card:
 ``set_precision()`` is process-wide; ``precision_scope()`` is context-local
 for the precision NAME (a ContextVar), and applies the torch TF32 flags for
 the duration of the block, restoring them on exit. The torch flags are
-process-global, so concurrent scopes in different threads share them.
+process-global, so every model call (the detectors' ``submit``, the
+encoders' ``__call__``) runs inside ``model_call()``: under one process
+lock, it sets the flags from ITS thread's precision name, launches, and
+restores them. A model call in one thread thus runs under its own
+precision whatever scope another thread holds; plain tensor ops outside a
+model call still see the process-global flags.
 """
 
 import contextlib
 import contextvars
+import threading
 
 import torch
 
@@ -23,6 +29,9 @@ _PRECISIONS = ("default", "high", "highest")
 
 _process_default = ["highest"]
 _precision = contextvars.ContextVar("v2f_precision")
+# serializes every change of the process-global TF32 flags with the model
+# calls that read them (reentrant: a model call may open a scope inside)
+_flags_lock = threading.RLock()
 
 
 def _apply_tf32(name):
@@ -31,11 +40,20 @@ def _apply_tf32(name):
     torch.backends.cudnn.allow_tf32 = allow
 
 
+def _tf32_flags():
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
+def _set_tf32_flags(flags):
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
 def set_precision(name: str):
     if name not in _PRECISIONS:
         raise ValueError(f"unknown precision {name!r}")
     _process_default[0] = name
-    _apply_tf32(get_precision_name())
+    with _flags_lock:
+        _apply_tf32(get_precision_name())
 
 
 def get_precision_name():
@@ -46,16 +64,30 @@ def get_precision_name():
 def precision_scope(name: str):
     if name not in _PRECISIONS:
         raise ValueError(f"unknown precision {name!r}")
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
+    with _flags_lock:
+        saved = _tf32_flags()
+        _apply_tf32(name)
     token = _precision.set(name)
-    _apply_tf32(name)
     try:
         yield
     finally:
         _precision.reset(token)
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+        with _flags_lock:
+            _set_tf32_flags(saved)
+
+
+@contextlib.contextmanager
+def model_call():
+    """Run a model call under the TF32 flags of the calling thread's
+    precision name, holding the process lock so that no other thread's
+    scope or model call changes them until the launches are queued."""
+    with _flags_lock:
+        saved = _tf32_flags()
+        _apply_tf32(get_precision_name())
+        try:
+            yield
+        finally:
+            _set_tf32_flags(saved)
 
 
 def resolve_device(device=None):

@@ -8,6 +8,7 @@ the max over what is inside; -inf padding for the ResNet stem).
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -38,10 +39,11 @@ class PConv(nn.Module):
 
 
 class ConvUnit(nn.Module):
-    """Conv2d + inference BatchNorm [+ residual add] [+ ReLU] — the JAX
-    package's ``ConvUnit`` as the port's models use it. With ``bn_eps=None``
-    there is no BatchNorm and the convolution has a bias (the FPN laterals
-    and smooths and the RPN conv).
+    """Conv2d + inference BatchNorm [+ residual add] [+ activation] — the
+    JAX package's ``ConvUnit`` as the port's models use it. ``activ``: None,
+    ``"relu"``, or ``"lrelu_0.1"`` (YOLO's leaky ReLU, ``where(x >= 0, x,
+    0.1 * x)``). With ``bn_eps=None`` there is no BatchNorm and the
+    convolution has a bias (the FPN laterals and smooths and the RPN conv).
 
     BatchNorm is ``nn.BatchNorm2d`` in eval mode, ``(x - mean) /
     sqrt(var + eps) * scale + bias`` on the running statistics; it is kept
@@ -51,7 +53,7 @@ class ConvUnit(nn.Module):
 
     def __init__(self, cin, cout, k, s=1, p=0, activ=None, bn_eps=1e-5):
         super().__init__()
-        if activ not in (None, "relu"):
+        if activ not in (None, "relu", "lrelu_0.1"):
             raise ValueError(f"unsupported activation {activ!r}")
         self.conv = nn.Conv2d(cin, cout, k, s, p, bias=bn_eps is None)
         self.bn = None if bn_eps is None else nn.BatchNorm2d(cout, eps=bn_eps)
@@ -63,7 +65,11 @@ class ConvUnit(nn.Module):
             x = self.bn(x)
         if add is not None:
             x = x + add
-        return torch.relu(x) if self.activ == "relu" else x
+        if self.activ == "relu":
+            return torch.relu(x)
+        if self.activ == "lrelu_0.1":
+            return F.leaky_relu(x, 0.1)
+        return x
 
 
 def init_uniform_fan_in_(model, seed):

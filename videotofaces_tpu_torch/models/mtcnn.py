@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.crops_kernel import pool_crops
-from ..ops.nms import iom_chain_suppress, nms_keep_mask_bucketed, topk_by_score
+from ..ops.nms import iom_chain_suppress, nms_keep_mask_bucketed, take_rows, topk_by_score
 from ..ops.pnet_kernel import packed_weights, pnet_level
 from ..utils.weights import mtcnn_from_jax
 from .layers import PConv, PReLU, init_uniform_fan_in_
@@ -195,15 +195,9 @@ def _per_image_nms(boxes, scores, valid, thr):
     return nms_keep_mask_bucketed(boxes, scores, valid, thr)
 
 
-def _take(a, idx):
-    """Gather rows ``idx`` [B, k] along axis 1 of a [B, K, ...] tensor."""
-    return torch.gather(a, 1, idx.reshape(idx.shape + (1,) * (a.dim() - 2))
-                        .expand(idx.shape + a.shape[2:]))
-
-
 def _select_topk(scores, keep, k, *arrays):
     idx, valid = topk_by_score(scores, keep, k)
-    return (valid, *(_take(a, idx) for a in arrays))
+    return (valid, *(take_rows(a, idx) for a in arrays))
 
 
 def full_forward(model, frames_u8, minsize=20, caps=Caps(),

@@ -32,7 +32,7 @@ from torch import nn
 from .. import config
 from ..ops.anchors import make_anchors
 from ..ops.boxes import clamp_to_canvas, convert_to_cwh, decode_boxes, small_boxes_mask
-from ..ops.nms import nms_keep_mask, topk_by_score
+from ..ops.nms import nms_keep_mask, take_rows, topk_by_score
 from ..ops.resize import bilinear_resize_matmul
 from ..ops.roi_align import roi_align_fpn
 from ..utils.weights import frcnn_from_jax
@@ -161,11 +161,6 @@ def frcnn_bases():
     return list(zip(STRIDES, anchors))
 
 
-def _take(a, idx):
-    """Gather rows ``idx`` [..., k] along axis -2 of a [..., K, D] tensor."""
-    return torch.gather(a, -2, idx[..., None].expand(idx.shape + a.shape[-1:]))
-
-
 def rpn_proposals(regs, logs, priors_per_level, canvas_used_hw, lvtop=1000,
                   out_top=1000, iou_thr=0.7):
     """Fixed-capacity proposal generation (rcnn.py:49-82 semantics).
@@ -191,7 +186,7 @@ def rpn_proposals(regs, logs, priors_per_level, canvas_used_hw, lvtop=1000,
         k = min(lvtop, log.shape[1])
         vals, idx = torch.sort(log, dim=1, descending=True, stable=True)
         vals, idx = vals[:, :k], idx[:, :k]
-        bx = decode_boxes(_take(reg, idx), pri[idx])
+        bx = decode_boxes(take_rows(reg, idx), pri[idx])
         pad = lvtop - k
         boxes_l.append(torch.nn.functional.pad(bx, (0, 0, 0, pad)))
         obj_l.append(torch.nn.functional.pad(torch.sigmoid(vals), (0, pad)))
@@ -211,7 +206,7 @@ def rpn_proposals(regs, logs, priors_per_level, canvas_used_hw, lvtop=1000,
         keep = nms_keep_mask(boxes, obj, valid, iou_thr)
     obj_flat = obj.reshape(b, nl * lvtop)
     idx, out_valid = topk_by_score(obj_flat, keep.reshape(b, nl * lvtop), out_top)
-    out_boxes = _take(boxes.reshape(b, nl * lvtop, 4), idx)
+    out_boxes = take_rows(boxes.reshape(b, nl * lvtop, 4), idx)
     overflow = torch.zeros((b,), dtype=torch.int32, device=dev)
     if two_pass:
         sel = torch.gather(obj_flat, 1, idx)
@@ -251,7 +246,7 @@ def roi_detections(apply_head, pyramid, proposals, pvalid, canvas_used_hw,
     keep = nms_keep_mask(flat_boxes, flat_scores, valid.reshape(b, r * nc), iou_thr,
                          class_ids)
     idx, out_valid = topk_by_score(flat_scores, keep, out_top)
-    out_boxes = _take(flat_boxes, idx)
+    out_boxes = take_rows(flat_boxes, idx)
     out_scores = torch.gather(flat_scores, 1, idx)
     return (out_boxes, out_scores, class_ids[idx], out_valid, roi_dropped,
             roi_truncated)

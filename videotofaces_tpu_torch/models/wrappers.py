@@ -1,6 +1,6 @@
 """User-facing model wrappers (counterpart of
-videotofaces_tpu/models/wrappers.py): the MTCNN and Faster R-CNN detectors
-and the FaceNet and ViT encoders (the YOLO detector is not ported yet).
+videotofaces_tpu/models/wrappers.py): the MTCNN, YOLOv3 and Faster R-CNN
+detectors and the FaceNet and ViT encoders.
 
 Weights resolution: converted .npz checkpoints from <repo>/weights, in the
 JAX package's layout (see tools/convert_weights.py), turned into the
@@ -8,6 +8,10 @@ modules' state dicts by ``utils/weights.*_from_jax``. When a
 checkpoint is absent, the wrapper falls back to seeded random weights (an
 explicit ``torch.Generator``) with a loud note — every compute path still
 runs, only the predictions are untrained.
+
+Every model call (``submit`` of a detector, ``__call__`` of an encoder)
+runs inside ``config.model_call()``: under the TF32 flags of the calling
+thread's precision, whatever scope another thread holds.
 """
 
 import os.path as osp
@@ -90,7 +94,7 @@ class MtcnnDetector:
         cuda = self.device.type == "cuda"
         if cuda:
             x = x.pin_memory().to(self.device, non_blocking=True)
-        with torch.inference_mode():
+        with config.model_call(), torch.inference_mode():
             out = self.M.full_forward(self.model, x, minsize=self.minsize,
                                       caps=self.caps,
                                       compute_dtype=self.compute_dtype)
@@ -140,9 +144,14 @@ class MtcnnDetector:
 
 class _BoxDetectorBase:
     """Shared submit / collect for detectors whose forward returns (boxes,
-    scores, classes, valid, select_overflow, roi_dropped, roi_truncated)
-    (models/wrappers.py:86-153 of the JAX package). Subclasses provide
-    ``_name``, ``_resized_hw(h, w)`` and ``_forward(x_u8, h, w)``."""
+    scores, classes, valid, *counters): YOLO's one counter
+    (select_overflow) or Faster R-CNN's three (select_overflow,
+    roi_dropped, roi_truncated) (models/wrappers.py:86-153 of the JAX
+    package). Subclasses provide ``_name``, ``_counter_warnings`` (one
+    "%s ... %d" text per counter, filled with the name and the batch max),
+    ``_resized_hw(h, w)`` and ``_forward(x_u8, h, w)``."""
+
+    _counter_warnings = ()
 
     def _resized_hw(self, h, w):
         raise NotImplementedError
@@ -168,7 +177,7 @@ class _BoxDetectorBase:
         cuda = self.device.type == "cuda"
         if cuda:
             x = x.pin_memory().to(self.device, non_blocking=True)
-        with torch.inference_mode():
+        with config.model_call(), torch.inference_mode():
             out = self._forward(x, h, w)
         if not cuda:
             return (out, None), n
@@ -183,21 +192,11 @@ class _BoxDetectorBase:
         (out, done), n = handle
         if done is not None:
             done.synchronize()
-        boxes, scores, classes, valid, overflow, dropped, truncated = (
-            t.numpy() for t in out)
-        of = int(overflow.max())
-        if of > 0:
-            print("WARNING: %s RPN two-pass NMS may have displaced up to %d "
-                  "proposal(s) per image (batch max; dense detections); run in "
-                  "precision 'highest' for the exact NMS." % (self._name, of))
-        dr = int(dropped.max())
-        if dr > 0:
-            print("WARNING: %s RoIAlign dropped up to %d roi(s) per image "
-                  "(batch max)." % (self._name, dr))
-        tr = int(truncated.max())
-        if tr > 0:
-            print("WARNING: %s RoIAlign ran up to %d roi(s) per image (batch max) "
-                  "with a truncated sampling window." % (self._name, tr))
+        boxes, scores, classes, valid, *counters = (t.numpy() for t in out)
+        for counter, text in zip(counters, self._counter_warnings, strict=True):
+            worst = int(counter.max())
+            if worst > 0:
+                print("WARNING: " + text % (self._name, worst))
         out_b, out_s, out_c = [], [], []
         for i in range(n):
             v = valid[i]
@@ -208,6 +207,66 @@ class _BoxDetectorBase:
 
     def __call__(self, frames):
         return self.collect(self.submit(frames))
+
+
+class YoloDetector(_BoxDetectorBase):
+    """Live-action face detector; reference API parity with RealYOLO
+    (yolo.py:179-191): __call__(list of BGR frames) -> (boxes, scores,
+    classes) as per-image numpy lists.
+
+    ``device``: None means the CUDA card and raises when there is none;
+    ``"cpu"`` runs on the CPU. ``params``: the JAX package's {"backbone",
+    "neck", "head"} tree (numpy arrays), used instead of a checkpoint.
+    ``max_side``: the keep-ratio resize's longer side (608). ``host_resize``:
+    resize with cv2 on the host (bit parity with the reference).
+    ``bf16``: parameters and the network in bfloat16 with the uint8-canvas
+    preprocess, as the JAX detector's flag. ``s2d`` is accepted for
+    compatibility with the JAX package and ignored: its space-to-depth stem
+    computes the same taps in a TPU blocking."""
+
+    _name = "YOLO"
+    _counter_warnings = ("%s candidate selection dropped up to %d candidate(s) per "
+                         "image (batch max).",)
+
+    def __init__(self, device=None, checkpoint="yolov3_wider", max_side=608,
+                 batch_size=None, params=None, host_resize=False, bf16=False, s2d=None):
+        from . import yolo as Y
+
+        print("Initializing YOLOv3 model for live-action face detection")
+        del s2d
+        self.device = config.resolve_device(device)
+        self.Y = Y
+        self.max_side = max_side
+        self.host_resize = host_resize
+        self.compute_dtype = torch.bfloat16 if bf16 else None
+        self.batch_size = batch_size
+        if params is None:
+            params = _resolve_checkpoint(checkpoint)
+        model = Y.YOLOv3.seeded(0) if params is None else Y.YOLOv3.from_jax(params)
+        if bf16:
+            model = model.to(torch.bfloat16)
+        self.model = model.to(self.device).eval()
+        self._geom = {}
+
+    def _resized_hw(self, h, w):
+        return self.Y.resized_shape(h, w, self.max_side)
+
+    def _geometry(self, h, w):
+        """(resized size, canvas, priors [D, 4], strides [D, 1] on the
+        device) of an h x w frame, computed once per frame size."""
+        if (h, w) not in self._geom:
+            nh, nw = self._resized_hw(h, w)
+            canvas = self.Y.canvas_shape(nh, nw)
+            priors, strides = self.Y.flat_priors_and_strides(canvas)
+            self._geom[(h, w)] = ((nh, nw), canvas, torch.from_numpy(priors).to(self.device),
+                                  torch.from_numpy(strides).to(self.device))
+        return self._geom[(h, w)]
+
+    def _forward(self, x, h, w):
+        resized, canvas, priors, strides = self._geometry(h, w)
+        return self.Y.full_forward(self.model, x, resized, canvas, priors, strides,
+                                   orig_hw=(h, w) if self.host_resize else None,
+                                   compute_dtype=self.compute_dtype)
 
 
 class FrcnnDetector(_BoxDetectorBase):
@@ -225,6 +284,12 @@ class FrcnnDetector(_BoxDetectorBase):
     dense method's function, with no buckets and no window)."""
 
     _name = "FasterRCNN"
+    _counter_warnings = (
+        "%s RPN two-pass NMS may have displaced up to %d proposal(s) per image "
+        "(batch max; dense detections); run in precision 'highest' for the exact NMS.",
+        "%s RoIAlign dropped up to %d roi(s) per image (batch max).",
+        "%s RoIAlign ran up to %d roi(s) per image (batch max) with a truncated "
+        "sampling window.")
 
     def __init__(self, device=None, checkpoint="frcnn_anime", batch_size=None,
                  params=None, resize_spec=(800, 1333), proposal_cap=1000, out_top=100,
@@ -337,7 +402,7 @@ class _Encoder:
         images = list(images)
         n = len(images)
         bs = self.batch_size or n
-        with torch.inference_mode():
+        with config.model_call(), torch.inference_mode():
             x = (self._packed_input if self.device_resize else self._host_input)(images, bs)
             out = self.model(x)
         return out[:n].cpu().numpy()

@@ -1,16 +1,32 @@
 """Box math on fixed-shape tensors (counterpart of videotofaces_tpu/ops/boxes.py)."""
 
+import math
+
 import torch
 
 
-def decode_boxes(pred, priors, mults=(1.0, 1.0)):
-    """R-CNN regression outputs -> (x1, y1, x2, y2) boxes around (cx, cy, w, h)
-    priors (Eq. 1-4, ``mode="rcnn"`` of the JAX op), with variance
-    multipliers ``mults``. pred / priors: [..., 4]. Reference behaviour:
-    operations/bbox.py:6-34."""
+def decode_boxes(pred, priors, mults=(1.0, 1.0), clamp=False, mode="rcnn", strides=None):
+    """Regression outputs -> (x1, y1, x2, y2) boxes around (cx, cy, w, h)
+    priors. pred / priors: [..., 4]. Reference behaviour:
+    operations/bbox.py:6-34.
+
+    ``mode="rcnn"``: R-CNN Eq. 1-4 with variance multipliers ``mults``,
+    xy = prior_wh * mult_xy * txy + prior_xy. ``mode="yolo"``: xy =
+    strides * (sigmoid(txy) - 0.5) + prior_xy, with ``strides``
+    broadcastable against pred[..., :1]. Both: wh = prior_wh * exp(mult_wh
+    * twh), the exponent clamped at log(1000 / 16) with ``clamp``
+    (torchvision's convention)."""
+    if mode not in ("rcnn", "yolo"):
+        raise ValueError(f"unknown decode mode {mode!r}")
     mult_xy, mult_wh = mults
-    xys = priors[..., 2:] * mult_xy * pred[..., :2] + priors[..., :2]
-    whs = priors[..., 2:] * torch.exp(mult_wh * pred[..., 2:])
+    if mode == "rcnn":
+        xys = priors[..., 2:] * mult_xy * pred[..., :2] + priors[..., :2]
+    else:
+        xys = strides * (torch.sigmoid(pred[..., :2]) - 0.5) + priors[..., :2]
+    twh = mult_wh * pred[..., 2:]
+    if clamp:
+        twh = torch.clamp(twh, max=math.log(1000.0 / 16))
+    whs = priors[..., 2:] * torch.exp(twh)
     return torch.cat([xys - whs * 0.5, xys + whs * 0.5], dim=-1)
 
 

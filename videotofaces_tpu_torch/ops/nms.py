@@ -104,6 +104,12 @@ def iom_chain_suppress(boxes, scores, valid, iom_thr, plus_one=True):
     return valid & ~torch.any(kills, dim=-2)
 
 
+def take_rows(a, idx):
+    """Gather rows ``idx`` [B, k] along axis 1 of a [B, K, ...] tensor."""
+    return torch.gather(a, 1, idx.reshape(idx.shape + (1,) * (a.dim() - 2))
+                        .expand(idx.shape + a.shape[2:]))
+
+
 def topk_by_score(scores, keep, topk):
     """Indices of the top-k kept candidates by score along the last axis,
     padded with validity: (idx [..., topk], valid [..., topk]). Descending

@@ -30,21 +30,13 @@ from ..utils.profiling import StageTimer, trace
 from . import boxfilter as BF
 from .dupes import remove_dupes_nearest, remove_dupes_overall
 
-# detectors of later slices, and the ROADMAP.md item that ports each
-_LATER = {"yolo": "queue 1, item 8 (YOLOv3)"}
-
 
 def resolve_det_model(style, det_model):
     """The detector name ``det_model`` stands for ("default" picks per
-    style); raises for detectors the port has not ported."""
+    style: Faster R-CNN for anime, YOLO for live action)."""
     if det_model == "default":
         det_model = "rcnn" if style == "anime" else "yolo"
-    if det_model in _LATER:
-        raise NotImplementedError(
-            "det_model=%r is not ported to videotofaces_tpu_torch yet "
-            "(ROADMAP.md %s); use det_model='mtcnn' or 'rcnn'"
-            % (det_model, _LATER[det_model]))
-    if det_model not in ("mtcnn", "rcnn"):
+    if det_model not in ("yolo", "mtcnn", "rcnn"):
         raise ValueError("unknown det_model %r (valid: default, yolo, rcnn, mtcnn)"
                          % (det_model,))
     return det_model
@@ -52,12 +44,12 @@ def resolve_det_model(style, det_model):
 
 def get_detector_model(style, det_model, device=None, **model_kw):
     """String-dispatch model factory (reference detection.py:22-29): the
-    Faster R-CNN or the MTCNN detector; YOLO raises."""
-    from ..models.wrappers import FrcnnDetector, MtcnnDetector
+    YOLOv3, Faster R-CNN or MTCNN detector."""
+    from ..models.wrappers import FrcnnDetector, MtcnnDetector, YoloDetector
 
-    if resolve_det_model(style, det_model) == "rcnn":
-        return FrcnnDetector(device, **model_kw)
-    return MtcnnDetector(device, **model_kw)
+    factory = {"yolo": YoloDetector, "rcnn": FrcnnDetector,
+               "mtcnn": MtcnnDetector}[resolve_det_model(style, det_model)]
+    return factory(device, **model_kw)
 
 
 def detect_faces(files, model, sampling, criteria, layout, hash_thr,
@@ -91,7 +83,8 @@ def detect_faces(files, model, sampling, criteria, layout, hash_thr,
                 # explicit uint64: np.stack on Python ints straddling 2^63
                 # would promote to float64 and corrupt the low hash bits
                 arr = np.asarray(hashes, dtype=np.uint64)
-                _, names = remove_dupes_overall(arr, names, "hash", hash_thr, layout)
+                _, names = remove_dupes_overall(arr, names, "hash", hash_thr, layout,
+                                                model.device)
 
     paths = [layout.face_path(fn) for fn in names]
     print()
@@ -184,8 +177,9 @@ def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=No
 def process_frames_batch(frames, indices, detout, criteria, layout, hash_thr,
                          hashes, writer, crops=None):
     """Host post-processing for one batch. ``detout`` is the detector output:
-    a (boxes, scores, classes) tuple of per-frame lists (Faster R-CNN), or a
-    list of [n, 5] (x1, y1, x2, y2, score) arrays, one per frame (MTCNN)."""
+    a (boxes, scores, classes) tuple of per-frame lists (YOLO, Faster
+    R-CNN), or a list of [n, 5] (x1, y1, x2, y2, score) arrays, one per
+    frame (MTCNN)."""
     img_size = frames[0].shape[:2]
     if isinstance(detout, tuple):
         boxes_list, scores_list = detout[0], detout[1]

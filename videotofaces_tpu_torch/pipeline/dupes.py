@@ -13,8 +13,9 @@ Behavioral contract (reference dupes.py):
 
 Duplicates are deleted, or moved to intermediate/dupesN with log_dupesN.csv
 when save_dupes is set. Hashes are packed as one uint64 per face; distances
-are integer popcounts, computed by the native C++ library (utils/native.py)
-or its numpy fallback. Cosine distances run as a Gram matrix on the device.
+are integer popcounts, computed by the native C++ library (utils/native.py);
+without it, N > 256 hashes go to the Hamming Gram on the device, fewer to
+the numpy fallback. Cosine distances run as a Gram matrix on the device.
 """
 
 import os
@@ -123,7 +124,14 @@ def _write_dupes1_log(log, layout):
 def _nearest_earlier(x, measure_type, device):
     """(min distance, argmin index) over all EARLIER rows, per row."""
     if measure_type == "hash":
-        return NV.hamming_nearest_earlier(np.ascontiguousarray(x, dtype=np.uint64))
+        packed = np.ascontiguousarray(x, dtype=np.uint64)
+        if NV.available() or len(packed) <= 256:
+            return NV.hamming_nearest_earlier(packed)   # native C++ or numpy
+        # no native library: the device Hamming Gram beats the O(N^2)
+        # python loop once N is non-trivial
+        bits = ((packed[:, None] >> np.arange(64, dtype=np.uint64)) & 1).astype(np.uint8)
+        mins, inds = D.dedup_hash(torch.from_numpy(bits).to(config.resolve_device(device)))
+        return mins.cpu().numpy(), inds.cpu().numpy()
     feats = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
     mins, inds = D.dedup_cosine(feats.to(config.resolve_device(device)))
     return mins.cpu().numpy(), inds.cpu().numpy()
@@ -131,8 +139,9 @@ def _nearest_earlier(x, measure_type, device):
 
 def remove_dupes_overall(x, filenames, measure_type, threshold, layout, device=None):
     """All-pairs dedup against earlier faces. ``x``: [N] packed uint64
-    hashes or [N, D] embeddings (whose cosine Gram runs on ``device``; None:
-    the card); returns (x without duplicates, surviving names)."""
+    hashes or [N, D] embeddings; the cosine Gram, and the hash Gram when
+    the native library is unavailable and N > 256, run on ``device``
+    (None: the card). Returns (x without duplicates, surviving names)."""
     if len(filenames) == 0:
         return x, filenames
 

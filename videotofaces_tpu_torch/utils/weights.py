@@ -4,7 +4,7 @@ Converted checkpoints live in ``<repo>/weights/*.npz`` as flat "a/b/c" keys in
 the JAX package's layout (HWIO conv kernels, [in, out] dense kernels — see
 tools/convert_weights.py). The port reads the same files and turns the nested
 numpy tree into ``state_dict``s for its ``nn.Module``s with ``mtcnn_from_jax``,
-``facenet_from_jax``, ``frcnn_from_jax`` and ``vit_from_jax``.
+``facenet_from_jax``, ``frcnn_from_jax``, ``vit_from_jax`` and ``yolo_from_jax``.
 """
 
 import os
@@ -158,3 +158,12 @@ def vit_from_jax(params_np):
             key = key[:-len("scale")] + "weight"
         sd[key] = val
     return sd
+
+
+def yolo_from_jax(params_np):
+    """The JAX package's YOLOv3 tree {"backbone", "neck", "head"} (numpy
+    arrays) -> the port's ``state_dict``: ``*/conv/kernel`` HWIO -> OIHW,
+    the heads' ``pred*/{kernel, bias}`` to convolutions with a bias, and
+    every BatchNorm ``*/bn/{scale, bias, mean, var}`` -> ``{weight, bias,
+    running_mean, running_var}`` plus a zero ``num_batches_tracked``."""
+    return _with_bn_names(jax_to_state_dict(params_np), ("bn",))
