@@ -65,9 +65,27 @@ any failed, printing no result line):
    n. ``video_to_faces(input_path, out_dir, style="live")`` with its
       defaults — YOLOv3 (seeded, face biases +2, through the factory),
       FaceNet-VGG (seeded, calibrated), hash and embedding dedup, K-means —
-      on a synthetic 1080p video (wall time, stage timings).
+      on a synthetic 1080p video (wall time, stage timings);
+   o. the serving path (``videotofaces_tpu_torch/serve.py``) with the anime
+      defaults, ``FaceService(style="anime", enc_kw={"device_resize":
+      True})`` (the seeded R-CNN recipe), behind the binary daemon on TCP
+      in a thread: ``warmup`` timed, then ping, 5 x detect and 5 x extract
+      of two seeded 1080p frames, 5 x embed of 16 crops, stats, shutdown
+      through ``ServeClient`` — ms per request beside the direct call, the
+      first request after warmup against the steady state, every reply
+      equal to the direct call, K4 and K5 launched; then the CLI daemon's
+      cold start in a fresh process, and K5's profiler kernel time at out
+      160 and 128;
+   p. the MTCNN cascade (bf16) + FaceNet (``device_resize``) behind the
+      HTTP gateway with PNG-encoded 1080p frames: /detect and /extract
+      equal to the direct call, ms per request split into the PNG codec
+      and the service, K1-K3 and K5 launched;
+   q. the live defaults (YOLOv3 + FaceNet) on a unix socket: 4 client
+      threads x 3 extract requests at once beside one in-process caller
+      holding precision "highest"; every reply equals the serial direct
+      call of its thread's precision.
 
-The YOLO path (4l-4n) runs no hand-written kernel: its convolutions are
+The YOLO path (4l-4n, 4q) runs no hand-written kernel: its convolutions are
 cuDNN's and its resize the matrix products of ``ops/resize.py``; its
 launch counts are printed all the same.
 
@@ -726,6 +744,390 @@ def profile_batch(det, batch, top=15):
         "idle %.1f%%" % (wall, dev_ms, 100 * dev_ms / wall, 100 - 100 * dev_ms / wall))
     for e in sorted(evs, key=lambda e: -self_dev(e))[:top]:
         log("     %8.3f ms  x%-5d %s" % (self_dev(e) / 1e3, e.count, e.key[:100]))
+
+
+def k5_profiler_ms(packed, hw, out, scale, mean, iters=20):
+    """Median and all device times (ms) of ``iters`` K5 launches under
+    torch.profiler: the kernel's own time, without the launch gaps that an
+    event-timed loop of ~30 us launches includes. None where the profiler
+    shows no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from videotofaces_tpu_torch.ops import resize_kernel as RK
+
+    RK.resize_normalize(packed, hw, out, scale, mean)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            RK.resize_normalize(packed, hw, out, scale, mean)
+        torch.cuda.synchronize()
+    times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                   if "resize_normalize_kernel" in e.name
+                   and "CUDA" in str(getattr(e, "device_type", "")))
+    return (float(np.median(times)), times) if times else (None, [])
+
+
+def serve_in_thread(srv):
+    """Run a socket or HTTP server's loop on a daemon thread."""
+    import threading
+
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    return t
+
+
+def timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def ms_line(times):
+    return "min %.2f, mean %.2f (all %s)" % (np.min(times), np.mean(times),
+                                             ", ".join("%.2f" % t for t in times))
+
+
+def assert_same_pairs(got, want):
+    """Per-frame (boxes, scores) replies equal exactly."""
+    assert len(got) == len(want)
+    for (gb, gs), (wb, ws) in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(gb, np.float32).reshape(-1, 4), wb)
+        np.testing.assert_array_equal(np.asarray(gs, np.float32).ravel(), ws)
+
+
+def assert_same_extract(got, want):
+    """Per-frame extract replies equal exactly: int boxes, float32 scores and
+    embeddings (JSON carries float32 values exactly as float64)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g["boxes"], np.int64).reshape(-1, 4),
+                                      w["boxes"])
+        np.testing.assert_array_equal(np.asarray(g["scores"], np.float32).ravel(),
+                                      w["scores"])
+        emb = np.asarray(g["embeddings"], np.float32)
+        np.testing.assert_array_equal(emb.reshape(w["embeddings"].shape), w["embeddings"])
+
+
+def wire_echo_ms(frames, iters=5):
+    """ms of framed round trips of ``frames`` over loopback TCP with the
+    serve module's framing (the client's ``np.stack``, ``_send_frame``, the
+    server's ``_recv_frame``, a small reply) and no model: the transport's
+    share of a served request. The first trip is dropped."""
+    import socket
+    import threading
+
+    from videotofaces_tpu_torch import serve as S
+
+    listener = socket.create_server(("127.0.0.1", 0))
+
+    def echo():
+        conn, _ = listener.accept()
+        with conn:
+            while S._recv_frame(conn)[0] is not None:
+                S._send_frame(conn, {"ok": True})
+
+    thread = threading.Thread(target=echo, daemon=True)
+    thread.start()
+    times = []
+    conn = socket.create_connection(listener.getsockname())
+    try:
+        for _ in range(iters + 1):
+            t0 = time.perf_counter()
+            S._send_frame(conn, {"op": "echo"}, [np.stack(frames).astype(np.uint8)])
+            S._recv_frame(conn)
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        conn.close()
+        thread.join(30)
+        listener.close()
+    assert not thread.is_alive()
+    return times[1:]
+
+
+def daemon_cold_start(root, args, frames, timeout=600):
+    """``python -m videotofaces_tpu_torch.serve ARGS --tcp 127.0.0.1:0`` in a
+    fresh process: seconds from spawn to listening (imports, CUDA context,
+    model init, kernel build check, ``--warmup-res``), then the ms of its
+    first ``extract`` of ``frames`` and of a second; the daemon is shut
+    down (killed on any failure)."""
+    import ast
+    import threading
+
+    from videotofaces_tpu_torch.serve import ServeClient
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "videotofaces_tpu_torch.serve", *args,
+                             "--tcp", "127.0.0.1:0"], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    watchdog = threading.Timer(timeout, proc.kill)
+    watchdog.start()
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("v2f serving on "):
+                break
+        else:
+            raise RuntimeError("the daemon never listened:\n" + "".join(lines[-20:]))
+        listening = time.perf_counter() - t0
+        client = ServeClient(ast.literal_eval(line[len("v2f serving on "):]))
+        try:
+            first = timed(client.extract, frames)[1]
+            second = timed(client.extract, frames)[1]
+            client.shutdown()
+        finally:
+            client.close()
+        assert proc.wait(timeout=60) == 0
+        return listening, first, second
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+
+
+def served_anime_tcp(root, batch, dev, kernels):
+    """4o: the anime defaults (Faster R-CNN with the seeded recipe, ViT-B16
+    with ``device_resize``) served on 127.0.0.1:0 by the binary daemon in a
+    thread; every reply must equal the direct call. Then the CLI daemon's
+    cold start in a fresh process, and K5's profiler kernel times."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.ops import resize_kernel as RK
+    from videotofaces_tpu_torch.serve import FaceService, ServeClient, make_server
+
+    config.set_precision("default")
+    svc = FaceService(style="anime", det_kw={"params": frcnn_params(0)},
+                      enc_kw={"device_resize": True})
+    assert svc.device.type == "cuda"
+    _, warm_ms = timed(svc.warmup, [(H, W)], [B], [16])
+    log("   warmup (1080p at batch %d, encoder batch 16): %.1f ms, in a process whose "
+        "earlier phases made the CUDA context and built the kernels" % (B, warm_ms))
+    crops = encoder_crops(4, 16)
+    srv = make_server(svc, ("127.0.0.1", 0))
+    thread = serve_in_thread(srv)
+    client = ServeClient(srv.server_address[:2])
+    reset_launches()
+    try:
+        assert client.ping() is True
+        det_got, det_ms = zip(*[timed(client.detect, batch) for _ in range(5)])
+        ex_got, ex_ms = zip(*[timed(client.extract, batch) for _ in range(5)])
+        emb_got, emb_ms = zip(*[timed(client.embed, crops) for _ in range(5)])
+        stats = client.stats()
+        client.shutdown()
+    finally:
+        client.close()
+    thread.join(30)
+    srv.server_close()
+    assert not thread.is_alive()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    det_want, det_direct = zip(*[timed(svc.detect, batch) for _ in range(5)])
+    ex_want, ex_direct = zip(*[timed(svc.extract, batch) for _ in range(5)])
+    emb_want, emb_direct = zip(*[timed(svc.embed, crops) for _ in range(5)])
+    faces = [len(r["boxes"]) for r in ex_want[0]]
+    log("   stats %s; faces per frame %s; launches over the served requests %s"
+        % (stats, faces, launches))
+    for op, served, direct in (("detect (2 x 1080p)", det_ms, det_direct),
+                               ("extract (2 x 1080p)", ex_ms, ex_direct),
+                               ("embed (16 crops)", emb_ms, emb_direct)):
+        log("   %-20s served ms: first after warmup %.2f, steady %s; direct call ms %s"
+            % (op, served[0], ms_line(served[1:]), ms_line(direct)))
+    log("   the wire alone (2 x 1080p frames framed over loopback TCP, no model) ms %s"
+        % ms_line(wire_echo_ms(batch)))
+    for got in det_got:
+        assert_same_pairs(got, det_want[0])
+    for got in ex_got:
+        assert_same_extract(got, ex_want[0])
+    for got in emb_got:
+        np.testing.assert_array_equal(got, emb_want[0])
+    assert sum(faces) > 0, "the served anime path found no faces"
+    assert launches["roi_align"] == 10 and launches["resize_normalize"] > 0, launches
+    del svc
+    listening, first, second = daemon_cold_start(
+        root, ["--style", "anime", "--warmup-res", str(H), str(W)], batch)
+    log("   CLI daemon in a fresh process (anime defaults, checkpoint-less seeded "
+        "weights, precision 'highest', --warmup-res %d %d): listening after %.2f s; "
+        "first extract %.2f ms, second %.2f ms" % (H, W, listening, first, second))
+    packed_np, sizes_np = RK.pack_images(encoder_crops(3, 128), 256)
+    packed = torch.from_numpy(packed_np).to(dev)
+    hw = torch.from_numpy(sizes_np).to(dev)
+    k5 = {}
+    for out, scale in ((160, 1 / 128.0), (128, 1 / 127.5)):
+        med, all_ms = k5_profiler_ms(packed, hw, out, scale, 127.5)
+        bnd, _ = bound_ms(*resize_work(sizes_np, out), "float32")
+        k5["out%d" % out] = dict(median_ms=med, bound_ms=bnd,
+                                 min_ms=all_ms[0] if all_ms else None,
+                                 max_ms=all_ms[-1] if all_ms else None)
+        log("   K5 profiler kernel time at out %d (N=128, 20 launches): median, min, max "
+            "%s ms; bound %.4f ms" % (out, ", ".join(
+                "%.4f" % v for v in (med, all_ms[0], all_ms[-1])) if all_ms else "none", bnd))
+    if "resize_normalize" in kernels:
+        kernels["resize_normalize"]["profiler"] = k5
+
+
+def served_mtcnn_http(batch, dev):
+    """4p: the MTCNN cascade (bf16) + FaceNet (``device_resize``) behind the
+    HTTP gateway with PNG-encoded frames; /detect and /extract must equal
+    the direct call."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+    import base64
+    import urllib.request
+
+    import cv2
+
+    from videotofaces_tpu_torch.serve import FaceService, make_http_server
+    from videotofaces_tpu_torch.specs import BoxCriteria
+
+    config.set_precision("default")
+    svc = FaceService(style="live", det_model="mtcnn",
+                      criteria=BoxCriteria(min_size=20, min_border=0),
+                      det_kw={"bf16": True, "params": seeded_params(0, 2.0)},
+                      enc_kw={"device_resize": True, "params": facenet_params(5, dev)})
+    svc.warmup([(H, W)], [B], [16])
+    b64, enc_ms = timed(lambda: [base64.b64encode(cv2.imencode(".png", f)[1]).decode()
+                                 for f in batch])
+    decoded, dec_ms = timed(lambda: [cv2.imdecode(np.frombuffer(base64.b64decode(t),
+                                                                np.uint8),
+                                                  cv2.IMREAD_COLOR) for t in b64])
+    for f, g in zip(batch, decoded):
+        np.testing.assert_array_equal(f, g)
+    srv = make_http_server(svc, ("127.0.0.1", 0))
+    thread = serve_in_thread(srv)
+    base = "http://%s:%d" % srv.server_address[:2]
+
+    def post(path, obj):
+        req = urllib.request.Request(base + path, data=json.dumps(obj).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    reset_launches()
+    try:
+        det_got, det_ms = zip(*[timed(post, "/detect", {"frames": b64}) for _ in range(5)])
+        ex_got, ex_ms = zip(*[timed(post, "/extract", {"frames": b64}) for _ in range(5)])
+        post("/shutdown", {})
+    finally:
+        thread.join(30)
+        srv.server_close()
+    assert not thread.is_alive()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    det_want, det_direct = zip(*[timed(svc.detect, batch) for _ in range(5)])
+    ex_want, ex_direct = zip(*[timed(svc.extract, batch) for _ in range(5)])
+    faces = [len(r["boxes"]) for r in ex_want[0]]
+    log("   faces per frame %s; launches over the served requests %s" % (faces, launches))
+    log("   PNG codec per request of 2 frames (%.1f MB of PNG): encode (client) %.2f ms, "
+        "decode (the server's work, timed alone) %.2f ms"
+        % (sum(len(t) for t in b64) * 3 / 4 / 1e6, enc_ms, dec_ms))
+    for op, served, direct in (("/detect", det_ms, det_direct),
+                               ("/extract", ex_ms, ex_direct)):
+        log("   %-8s HTTP ms: first after warmup %.2f, steady %s; direct service call "
+            "ms %s; HTTP minus service minus PNG decode: %.2f ms"
+            % (op, served[0], ms_line(served[1:]), ms_line(direct),
+               np.mean(served[1:]) - np.mean(direct) - dec_ms))
+    for got in det_got:
+        assert_same_pairs([(r["boxes"], r["scores"]) for r in got["results"]],
+                          det_want[0])
+    for got in ex_got:
+        assert_same_extract(got["results"], ex_want[0])
+    assert sum(faces) > 0, "the served MTCNN path found no faces"
+    for name in ("pnet_level", "pool_crops", "resize_normalize"):
+        assert launches[name] > 0, "%s was not launched on the served path" % name
+    del svc
+
+
+def served_concurrent(dev):
+    """4q: the live defaults (YOLOv3 + FaceNet) on a unix socket: 4 client
+    threads x 3 extract requests at once beside one in-process caller
+    holding precision "highest"; every reply must equal the serial direct
+    call of its thread's precision (the wire carries no precision: a served
+    request runs under the daemon's process default)."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+    import threading
+
+    from videotofaces_tpu_torch.serve import FaceService, ServeClient, make_server
+
+    config.set_precision("default")
+    svc = FaceService(style="live", det_kw={"params": yolo_params(
+        0, obj_shift=2.0, cls_shift=2.0, reg_scale=0.6)},
+        enc_kw={"params": facenet_params(5, dev)})
+    svc.warmup([(H, W)], [B], [16])
+    inputs = [list(seeded_frames(40 + t)) for t in range(5)]
+    precs = ["default"] * 4 + ["highest"]
+    serial = []
+    t0 = time.perf_counter()
+    for frames_t, prec in zip(inputs, precs):
+        with config.precision_scope(prec):
+            serial.append(svc.extract(frames_t))
+    serial_s = time.perf_counter() - t0
+    faces = [[len(r["boxes"]) for r in res] for res in serial]
+    assert all(sum(f) > 0 for f in faces), faces
+    with config.precision_scope("default"):
+        other = svc.extract(inputs[4])
+    diff = max(np.abs(a["embeddings"] - b["embeddings"]).max()
+               for a, b in zip(serial[4], other) if len(a["boxes"]) == len(b["boxes"]))
+    log("   faces per frame %s; 'highest' vs 'default' on the same frames: max|emb "
+        "diff| %.3g" % (faces, diff))
+    assert diff > 0, "the two precisions agree: the check would show nothing"
+    with tempfile.TemporaryDirectory() as tmp:
+        sock = osp.join(tmp, "v2f.sock")
+        srv = make_server(svc, sock)
+        thread = serve_in_thread(srv)
+        start = threading.Barrier(5)
+        replies, errors = {t: [] for t in range(5)}, []
+
+        def run(t):
+            try:
+                start.wait(60)
+                if t == 4:
+                    with config.precision_scope("highest"):
+                        for _ in range(3):
+                            replies[t].append(svc.extract(inputs[t]))
+                    return
+                client = ServeClient(sock)
+                try:
+                    for _ in range(3):
+                        replies[t].append(client.extract(inputs[t]))
+                finally:
+                    client.close()
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append("thread %d: %r" % (t, e))
+
+        workers = [threading.Thread(target=run, args=(t,)) for t in range(5)]
+        reset_launches()
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(300)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        client = ServeClient(sock)
+        try:
+            stats = client.stats()
+            client.shutdown()
+        finally:
+            client.close()
+        thread.join(30)
+        srv.server_close()
+    assert not thread.is_alive() and not any(w.is_alive() for w in workers)
+    assert not errors, errors
+    log("   15 concurrent extracts (12 served, 3 in-process) in %.2f s, %.1f ms per "
+        "extract; the 5 threads' inputs once each, serially in-process: %.2f s, %.1f ms "
+        "per extract; stats %s; launches %s"
+        % (wall, wall / 15 * 1e3, serial_s, serial_s / 5 * 1e3, stats, launches))
+    for t in range(5):
+        assert len(replies[t]) == 3
+        for got in replies[t]:
+            assert_same_extract(got, serial[t])
 
 
 def main():
@@ -1431,6 +1833,18 @@ def main():
             assert faces, "the live path found no faces"
             assert len(groups) >= 2 and all(os.listdir(osp.join(faces_dir, g))
                                             for g in groups), "faces were not clustered"
+
+    with phase("4o. served anime defaults over TCP: FaceService(style='anime', "
+               "device_resize) — Faster R-CNN + ViT-B16 — through ServeClient"):
+        served_anime_tcp(root, list(frames_np), dev, kernels)
+
+    with phase("4p. served MTCNN over HTTP: FaceService(style='live', det_model='mtcnn', "
+               "bf16, device_resize), PNG-encoded 1080p frames"):
+        served_mtcnn_http(list(frames_np), dev)
+
+    with phase("4q. concurrent clients: live defaults (YOLOv3 + FaceNet) on a unix socket, "
+               "4 clients x 3 extract, one in-process caller under precision 'highest'"):
+        served_concurrent(dev)
 
     if failures:
         print("chip_smoke: %d phase(s) failed:\n  %s" % (len(failures),

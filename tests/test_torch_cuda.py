@@ -297,6 +297,39 @@ def test_yolo_card_matches_cpu():
         torch.testing.assert_close(got[1][i].cpu()[gv], want[1][i][wv], rtol=0, atol=1e-4)
 
 
+@pytest.mark.cuda
+def test_face_service_card_matches_cpu():
+    """``FaceService.extract`` with f32 YOLOv3 (``_seeded_yolo``'s weights,
+    max_side 160) and the seeded FaceNet, precision "highest", on the card
+    against the same service on the CPU, on 2 frames of 180 x 320: the same
+    per-frame counts, every detection of each side matched by one of the
+    other at IoU >= 0.99 (the nearest score among those), identical int
+    boxes, scores within 1e-4 and embeddings within 1e-4 of the CPU's."""
+    _need_cuda()
+    from videotofaces_tpu_torch.serve import FaceService
+    from videotofaces_tpu_torch.specs import BoxCriteria
+
+    state = _seeded_yolo(2).state_dict()
+    crit = BoxCriteria(min_score=0.0, min_size=1, min_border=0)
+    frames = list(_frames(2, 180, 320, 6).cpu().numpy())
+    out = {}
+    for dev in ("cuda", "cpu"):
+        svc = FaceService(device=dev, det_kw=dict(max_side=160), criteria=crit)
+        svc.detector.model.load_state_dict(state)
+        with config.precision_scope("highest"):
+            out[dev] = svc.extract(frames)
+    for g, w in zip(out["cuda"], out["cpu"], strict=True):
+        assert len(w["boxes"]) > 5 and len(g["boxes"]) == len(w["boxes"])
+        iou = box_iou_matrix(torch.from_numpy(g["boxes"]).float(),
+                             torch.from_numpy(w["boxes"]).float()).numpy()
+        near = np.abs(g["scores"][:, None] - w["scores"][None, :])
+        gi = np.where(iou >= 0.99, near, np.inf).argmin(1)
+        assert (iou.max(1) >= 0.99).all() and (iou.max(0) >= 0.99).all()
+        np.testing.assert_array_equal(g["boxes"], w["boxes"][gi])
+        np.testing.assert_allclose(g["scores"], w["scores"][gi], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(g["embeddings"], w["embeddings"][gi], rtol=0, atol=1e-4)
+
+
 def _packed_crops(seed, shapes, max_size=256):
     rng = np.random.default_rng(seed)
     imgs = [rng.integers(0, 256, (h, w, 3)).astype(np.uint8) for h, w in shapes]

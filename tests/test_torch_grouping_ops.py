@@ -201,3 +201,70 @@ def test_hash_dedup_without_native_library_uses_the_device_gram(monkeypatch, tmp
                                      TS.OutputLayout(str(tmp_path / "port")), "cpu")[1]
     assert kept == jax_kept and len(kept) < len(names) - 30
     assert len(devices) == 2
+
+
+def _near_tied(seed, n=18, d=32):
+    """Embeddings like the pipeline tests' stand-in encoder's: a one-hot
+    brightness bucket plus 0.01 x brightness / 255 in every column, for
+    crops of brightness 100 or 160 (+ up to 2): the points of a bucket lie
+    ~1e-5 apart — closer than float32's error in the ``x2 - 2xy + y2``
+    distances of vectors of norm ~3."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((n, d), np.float32)
+    for i, m in enumerate(np.where(rng.random(n) < 0.5, 100.0, 160.0) + rng.uniform(0, 2, n)):
+        bucket = int(m // 64)
+        x[i, bucket * 8:bucket * 8 + 8] = 1.0
+        x[i] += np.float32(m / 255.0 * 0.01)
+    return x
+
+
+def _lloyd_float64(x, k, seed):
+    """Lloyd's algorithm in float64 from the same k-means++ seeding, to the
+    first repeated labelling."""
+    x = x.astype(np.float64)
+    centers = KM.kmeans_plusplus(x.astype(np.float32), k, seed)[0].astype(np.float64)
+    prev = None
+    for _ in range(300):
+        labels = ((x[:, None] - centers[None]) ** 2).sum(-1).argmin(1)
+        if prev is not None and (labels == prev).all():
+            break
+        centers = np.stack([x[labels == j].mean(0) if (labels == j).any() else centers[j]
+                            for j in range(k)])
+        prev = labels
+    return labels
+
+
+def _scores_float64(x, labels, k):
+    """The three scores in float64 with distances as differences (sklearn's
+    own euclidean distances use the expansion, which errs at ~1e-5 here):
+    silhouette on the precomputed distance matrix, Calinski-Harabasz
+    (no distances), Davies-Bouldin as its definition."""
+    from sklearn import metrics
+
+    x = x.astype(np.float64)
+    dist = np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1))
+    centers = np.stack([x[labels == j].mean(0) for j in range(k)])
+    s = np.array([np.sqrt(((x[labels == j] - centers[j]) ** 2).sum(1)).mean()
+                  for j in range(k)])
+    m = np.sqrt(((centers[:, None] - centers[None]) ** 2).sum(-1))
+    r = (s[:, None] + s[None]) / np.where(m == 0, np.inf, m)
+    np.fill_diagonal(r, -np.inf)
+    return [metrics.silhouette_score(dist, labels, metric="precomputed"),
+            metrics.calinski_harabasz_score(x, labels), r.max(1).mean()]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kmeans_and_scores_on_near_tied_points_equal_float64(seed):
+    """Points ~1e-5 apart: the labels equal a float64 Lloyd's and the three
+    scores their float64 values (rtol 1e-4), where float32 distances flip
+    labels from one Lloyd step to the next and move the scores by
+    percent."""
+    x = _near_tied(seed)
+    for k in (3, 4):
+        labels = KM.kmeans_fit(x, k, random_state=0, device="cpu")[0]
+        np.testing.assert_array_equal(labels, _lloyd_float64(x, k, 0))
+        np.testing.assert_allclose(
+            [CS.silhouette_score(x, labels, k, device="cpu"),
+             CS.calinski_harabasz_score(x, labels, k, device="cpu"),
+             CS.davies_bouldin_score(x, labels, k, device="cpu")],
+            _scores_float64(x, labels, k), rtol=1e-4)

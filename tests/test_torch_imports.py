@@ -175,3 +175,37 @@ def test_out_of_slice_requests_raise():
     for style in ("live", "anime"):
         with pytest.raises(ValueError, match="unknown det_model"):
             DET.get_detector_model(style, "retinaface", "cpu")
+
+
+def test_package_data_ships_every_kernel_source_and_header(monkeypatch):
+    """An installed (non-editable) package builds its kernels at first use,
+    so the package data must hold every ``#include "..."`` of the CUDA
+    sources and every file ``ops/_cuda.py`` hashes into a build."""
+    import fnmatch
+    import re
+    import tomllib
+
+    from videotofaces_tpu_torch.ops import _cuda
+
+    pkg = ROOT / "videotofaces_tpu_torch"
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["videotofaces_tpu_torch"]
+    needed = set()
+    for src in sorted((pkg / "csrc").glob("*.cu")):
+        needed.add(src.relative_to(pkg).as_posix())
+        for inc in re.findall(r'^\s*#include\s+"([^"]+)"', src.read_text(), re.M):
+            assert (src.parent / inc).is_file(), (src.name, inc)
+            needed.add((src.parent / inc).relative_to(pkg).as_posix())
+    hashed = []
+
+    def recording_open(path, *args, **kw):
+        hashed.append(Path(path).resolve().relative_to(pkg).as_posix())
+        return open(path, *args, **kw)
+
+    monkeypatch.setattr(_cuda, "open", recording_open, raising=False)
+    for src in _cuda.SOURCES:
+        _cuda._target(src)
+    assert "csrc/window_sums.cuh" in hashed
+    needed.update(hashed)
+    missing = sorted(n for n in needed if not any(fnmatch.fnmatch(n, g) for g in globs))
+    assert not missing, missing

@@ -11,9 +11,11 @@ classification (``mode="full" | "detection" | "grouping"``).
 Pipeline: host video decode -> batched on-device detector (YOLOv3, Faster
 R-CNN or the MTCNN cascade) -> box filter/expand/square -> crop & save ->
 hash dedup -> ViT or FaceNet embeddings -> embedding dedup -> K-means with
-silhouette selection (or classification).
+silhouette selection (or classification). ``serve`` keeps the detector
+and encoder resident behind a unix-socket, TCP or HTTP daemon.
 """
 
 from .api import video_to_faces  # noqa: F401
+from .utils.gallery import image_gallery, dataframe_with_images  # noqa: F401
 
 __version__ = "0.1.0"

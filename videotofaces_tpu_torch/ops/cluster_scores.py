@@ -6,6 +6,12 @@ davies_bouldin_score, rand_score} used for K selection and the grouping eval
 harness (reference grouping.py:104-108, 151-152). The three geometric scores
 reduce to distance matrices and centroid statistics — matmuls and
 reductions on the device (None: the card); inputs are numpy arrays.
+Tight clusters need float64: the distances' ``x2 - 2xy + y2`` form
+cancels, and in float32 its error (~1e-5 at |x|^2 ~ 8), like the float32
+rounding of the centroids, moves the scores of points ~1e-5 apart by
+whole percent. The silhouette computes its [rows, N] distance blocks in
+float64 and reduces them in float32; the Calinski-Harabasz and
+Davies-Bouldin scores, O(N D) work, run in float64 throughout.
 """
 
 import numpy as np
@@ -14,22 +20,27 @@ import torch.nn.functional as F
 
 from .. import config
 
-_SIL_ROWS = 8192   # rows of the [rows, N] silhouette distance block at a time
+_SIL_ROWS = 4096   # rows of the [rows, N] float64 silhouette distance block at a time
 
 
-def _pairwise_euclidean(x):
-    sq = torch.sum(x * x, dim=1)
-    d2 = sq[:, None] - 2.0 * (x @ x.T) + sq[None, :]
-    return torch.sqrt(torch.clamp(d2, min=0.0))
+def _euclidean(a, b):
+    """[len(a), len(b)] euclidean distances, the expansion computed in
+    float64 (see the module docstring), returned in ``a``'s dtype."""
+    a64, b64 = a.double(), b.double()
+    d2 = (torch.sum(a64 * a64, dim=1)[:, None] - 2.0 * (a64 @ b64.T)
+          + torch.sum(b64 * b64, dim=1)[None, :])
+    return torch.sqrt(torch.clamp(d2, min=0.0)).to(a.dtype)
 
 
-def _silhouette_sum(xr, labr, xf, onehot_f, counts):
-    """Silhouette sum over a block of rows. xr/labr: the block's rows;
-    xf/onehot_f/counts: the full set. The [rows, N] distance block is the
-    only O(N^2) object."""
-    sq_r = torch.sum(xr * xr, dim=1)
-    sq_f = torch.sum(xf * xf, dim=1)
-    d = torch.sqrt(torch.clamp(sq_r[:, None] - 2.0 * (xr @ xf.T) + sq_f[None, :], min=0.0))
+def _silhouette_sum(xr, labr, xf, onehot_f, counts, row0):
+    """Silhouette sum over a block of rows. xr/labr: the block's rows, from
+    row ``row0`` of the full set xf/onehot_f/counts. The [rows, N] distance
+    block is the only O(N^2) object. A point's distance to itself is set
+    to 0, as sklearn sets it: the expansion leaves the square root of a
+    rounding residue there, which weighs against points ~1e-5 apart."""
+    d = _euclidean(xr, xf)
+    rows = torch.arange(xr.shape[0], device=xr.device)
+    d[rows, rows + row0] = 0.0
     sums = d @ onehot_f                                          # [rows, K]
     own_count = counts[labr]
     own_sum = torch.gather(sums, 1, labr[:, None])[:, 0]
@@ -45,17 +56,19 @@ def _silhouette_sum(xr, labr, xf, onehot_f, counts):
     return torch.sum(sil)
 
 
-def _onehot_stats(labels, k):
-    onehot = F.one_hot(labels, k).to(torch.float32)
+def _onehot_stats(labels, k, dtype=torch.float32):
+    onehot = F.one_hot(labels, k).to(dtype)
     counts = onehot.sum(dim=0)
     return onehot, counts
 
 
-def _inputs(x, labels, n_clusters, device):
+def _inputs(x, labels, n_clusters, device, dtype=torch.float32):
+    """The points on ``device`` (copied as float32, cast there to
+    ``dtype``), the labels, and k."""
     device = config.resolve_device(device)
     labels = np.asarray(labels)
     k = int(n_clusters if n_clusters is not None else labels.max() + 1)
-    xd = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+    xd = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device).to(dtype)
     return xd, torch.from_numpy(labels.astype(np.int64)).to(device), k
 
 
@@ -65,7 +78,7 @@ def silhouette_score(x, labels, n_clusters=None, device=None):
     xd, lab, k = _inputs(x, labels, n_clusters, device)
     onehot, counts = _onehot_stats(lab, k)
     total = sum(float(_silhouette_sum(xd[i:i + _SIL_ROWS], lab[i:i + _SIL_ROWS],
-                                      xd, onehot, counts))
+                                      xd, onehot, counts, i))
                 for i in range(0, xd.shape[0], _SIL_ROWS))
     return total / xd.shape[0]
 
@@ -75,9 +88,9 @@ def _centers(xd, onehot, counts):
 
 
 def calinski_harabasz_score(x, labels, n_clusters=None, device=None):
-    xd, lab, k = _inputs(x, labels, n_clusters, device)
+    xd, lab, k = _inputs(x, labels, n_clusters, device, torch.float64)
     n = xd.shape[0]
-    onehot, counts = _onehot_stats(lab, k)
+    onehot, counts = _onehot_stats(lab, k, torch.float64)
     centers = _centers(xd, onehot, counts)
     mean = xd.mean(dim=0)
     between = torch.sum(counts * torch.sum((centers - mean) ** 2, dim=1))
@@ -88,13 +101,13 @@ def calinski_harabasz_score(x, labels, n_clusters=None, device=None):
 
 
 def davies_bouldin_score(x, labels, n_clusters=None, device=None):
-    xd, lab, k = _inputs(x, labels, n_clusters, device)
-    onehot, counts = _onehot_stats(lab, k)
+    xd, lab, k = _inputs(x, labels, n_clusters, device, torch.float64)
+    onehot, counts = _onehot_stats(lab, k, torch.float64)
     centers = _centers(xd, onehot, counts)
     # mean intra-cluster distance to the centroid
     dist_to_own = torch.sqrt(torch.clamp(torch.sum((xd - centers[lab]) ** 2, dim=1), min=0.0))
     s = (dist_to_own[None, :] @ onehot)[0] / torch.clamp(counts, min=1.0)
-    m = _pairwise_euclidean(centers)
+    m = _euclidean(centers, centers)
     r = (s[:, None] + s[None, :]) / torch.where(m == 0, torch.full_like(m, float("inf")), m)
     eye = torch.eye(k, dtype=torch.bool, device=xd.device)
     r = torch.where(eye, torch.full_like(r, float("-inf")), r)

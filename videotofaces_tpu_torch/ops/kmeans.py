@@ -8,10 +8,11 @@ Replaces ``sklearn.cluster.KMeans(n_clusters=k, random_state=r, n_init='auto')``
   ``np.random.RandomState`` in exactly the published order, so seeds match
   sklearn (and the JAX package) for the same ``random_state``;
 - Lloyd iterations run on the DEVICE: the assignment step is an [N, K]
-  squared-distance matrix in the ``x2 - 2xc + c2`` form (one matmul), the
-  update step a one-hot [K, N] @ [N, D] matmul; ``torch.argmin`` returns
-  the first minimum, as ``jnp.argmin`` does. Empty clusters are re-seeded
-  on the host from the farthest points (sklearn's relocation rule);
+  squared-distance matrix in the ``x2 - 2xc + c2`` form (one matmul, in
+  float64: see ``_sq_dists``), the update step a one-hot [K, N] @ [N, D]
+  matmul; ``torch.argmin`` returns the first minimum, as ``jnp.argmin``
+  does. Empty clusters are re-seeded on the host from the farthest points
+  (sklearn's relocation rule);
 - convergence mirrors sklearn: strict stop when labels repeat, else stop
   when the summed squared center shift <= tol * mean(var(X, axis=0)).
 """
@@ -24,7 +25,11 @@ from .. import config
 
 
 def _sq_dists(x, centers):
-    """[N, K] squared euclidean distances (x2 - 2xc + c2, clipped at 0)."""
+    """[N, K] float64 squared euclidean distances (x2 - 2xc + c2, clipped at
+    0). In float32 the form's cancellation errs by ~1e-5 at |x|^2 ~ 8, more
+    than the margin between two near-tied centers: the labels then flip
+    from one Lloyd step to the next where an exact Lloyd converges."""
+    x, centers = x.double(), centers.double()
     x2 = torch.sum(x * x, dim=1, keepdim=True)
     c2 = torch.sum(centers * centers, dim=1)
     return torch.clamp(x2 - 2.0 * (x @ centers.T) + c2, min=0.0)
@@ -74,7 +79,7 @@ def _lloyd_step(x, centers):
     sizes, distances-to-closest."""
     d = _sq_dists(x, centers)
     labels = torch.argmin(d, dim=1)
-    closest = d.min(dim=1).values
+    closest = d.min(dim=1).values.to(x.dtype)
     k = centers.shape[0]
     onehot = F.one_hot(labels, k).to(x.dtype)                    # [N, K]
     counts = onehot.sum(dim=0)                                   # [K]
