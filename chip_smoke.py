@@ -83,11 +83,28 @@ any failed, printing no result line):
    q. the live defaults (YOLOv3 + FaceNet) on a unix socket: 4 client
       threads x 3 extract requests at once beside one in-process caller
       holding precision "highest"; every reply equals the serial direct
-      call of its thread's precision.
+      call of its thread's precision;
+   r. training (``videotofaces_tpu_torch/train``): ``finetune_yolo_full``
+      and ``finetune_yolo_head`` at the JAX defaults (batch 8, ``max_side``
+      608) on seeded weights and 16 synthetic 1080p frames with one or two
+      bright blocks each, 3 epochs, in precision "default" and "highest":
+      ms per step (min and mean after the first), images/s, peak memory,
+      the op bound, the loss history (finite); then one full step at 64
+      px on the card against the CPU in "highest" (loss and parts, every
+      gradient, the clip's global norm, the updated parameters);
+   s. ``finetune_facenet`` at 160 px, batch 32, ``bank_size`` 0 and 256,
+      on 128 crops of 16 identities (ms per step, peak memory, history),
+      and one step at 75 px on the card against the CPU (the BatchNorm
+      statistics' gradients and updates included);
+   t. the ``ViTClassifier`` B16 step at 128 px, batch 64, with ``remat``
+      False and True (one step each in "highest" agreeing to float
+      rounding, then ms per step and peak memory in "default"), and one
+      small step (img 32, dim 64, depth 2) on the card against the CPU.
 
 The YOLO path (4l-4n, 4q) runs no hand-written kernel: its convolutions are
 cuDNN's and its resize the matrix products of ``ops/resize.py``; its
-launch counts are printed all the same.
+launch counts are printed all the same. Training (4r-4t) reaches no kernel
+either: the JAX package's training reaches no ``pl.pallas_call``.
 
 Its last two lines are a JSON object listing every kernel with its launches,
 error and times, and ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -108,6 +125,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_OPS = {"bfloat16": 989e12,   # dense bf16 tensor-core rate
+            "tf32": 495e12,       # dense TF32 tensor-core rate (precision "default")
             "float32": 67e12}     # float32 on the CUDA cores (also int32 adds)
 # pnet_level against its plain version: float32, accumulation order only;
 # bfloat16, a one-ulp difference in one bf16-rounded map compounds through
@@ -1130,6 +1148,512 @@ def served_concurrent(dev):
             assert_same_extract(got, serial[t])
 
 
+# -- training (4r-4t) -----------------------------------------------------------
+# card against CPU, one step at a small size in precision "highest": the
+# tolerances of the port's CPU parity tests (tests/torch_train_ref.py)
+STEP_TOLS = dict(loss_rtol=1e-5, grad_rtol=1e-4, grad_share=1e-5)
+
+
+def face_frames(seed, n=16, h=H, w=W):
+    """``n`` smooth seeded frames, each with one or two bright blocks (the
+    faces of the JAX package's training tests, at 1080p) and their boxes."""
+    rng = np.random.default_rng(seed)
+    frames = seeded_frames(seed, b=n, h=h, w=w)
+    gts = []
+    for f in frames:
+        boxes = []
+        for _ in range(int(rng.integers(1, 3))):
+            s = int(rng.integers(h // 12, h // 4))
+            x, y = int(rng.integers(0, w - s)), int(rng.integers(0, h - s))
+            f[y:y + s, x:x + s] = (210, 180, 160)
+            boxes.append([x, y, x + s, y + s])
+        gts.append(np.asarray(boxes, np.float32))
+    return frames, gts
+
+
+def small_faces(seed, n, size=64):
+    """The JAX package's training-test faces: dim noise, one bright block."""
+    rng = np.random.default_rng(seed)
+    frames, gts = [], []
+    for _ in range(n):
+        f = (rng.random((size, size, 3)) * 60).astype(np.uint8)
+        x, y = int(rng.integers(4, size - 28)), int(rng.integers(4, size - 28))
+        s = int(rng.integers(16, 26))
+        f[y:y + s, x:x + s] = (210, 180, 160)
+        frames.append(f)
+        gts.append(np.asarray([[x, y, x + s, y + s]], np.float32))
+    return np.stack(frames), gts
+
+
+def identity_crops(seed, ids, per_id, px):
+    """uint8 BGR crops, ``per_id`` per identity, labels the identities: each
+    crop is half a smooth seeded image of its identity and half one of its
+    own — identities a random network does not yet separate (the triplet
+    loss starts above 0) — plus per-pixel noise of +-10."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+
+    def smooth():
+        return cv2.resize(rng.integers(0, 256, (6, 6, 3)).astype(np.uint8), (px, px),
+                          interpolation=cv2.INTER_CUBIC).astype(np.float32)
+
+    crops, labels = [], []
+    for k in range(ids):
+        base = smooth()
+        for _ in range(per_id):
+            crops.append(np.clip(0.5 * base + 0.5 * smooth()
+                                 + rng.integers(-10, 11, base.shape), 0, 255))
+            labels.append(k)
+    return np.stack(crops).astype(np.uint8), np.asarray(labels, np.int32)
+
+
+def forward_ops(model, x, kinds):
+    """{top-level module: 2 x multiply-adds} of the convolutions and dense
+    layers (``kinds``) in one forward of ``x``."""
+    import torch
+
+    ops = {}
+
+    def count(mod, i, o, top):
+        ops[top] = ops.get(top, 0) + 2 * o.numel() * mod.weight[0].numel()
+
+    hooks = [m.register_forward_hook(lambda mod, i, o, top=name.split(".")[0]:
+                                     count(mod, i, o, top))
+             for name, m in model.named_modules() if isinstance(m, kinds)]
+    with torch.no_grad():
+        model(x)
+    for hk in hooks:
+        hk.remove()
+    return ops
+
+
+@contextlib.contextmanager
+def step_timer(module, name, times):
+    """Wrap the training step ``module.name`` (which a fine-tune loop calls by
+    name) so that each call starts and ends with a device sync and appends
+    its ms to ``times``."""
+    import torch
+
+    step = getattr(module, name)
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*a, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(module, name, timed_step)
+    try:
+        yield
+    finally:
+        setattr(module, name, step)
+
+
+def step_line(label, times, batch, peak, bnd):
+    steady = times[1:]
+    return ("   %s: ms per step (after the first) min %.2f, mean %.2f; first %.2f; "
+            "%.1f images/s; peak memory %.2f GiB; op bound %.3f ms (%.1f %% of the min)"
+            % (label, np.min(steady), np.mean(steady), times[0],
+               batch * 1e3 / np.mean(steady), peak / 2 ** 30, bnd,
+               100.0 * bnd / np.min(steady)))
+
+
+def check_grads(got, want, share=STEP_TOLS["grad_share"], zero=()):
+    """Gradients after one step, ``got`` against ``want`` (flat {name:
+    array}, the same names): per tensor within rtol 1e-4 and ``share`` x its
+    max|want|; the tensors whose names end with one of ``zero`` (0 in exact
+    arithmetic) both within 1e-6 x the largest gradient. Returns the worst
+    error over its bound. The port's CPU parity tests use it too."""
+    assert set(got) == set(want), set(got) ^ set(want)
+    top = max(float(np.abs(w).max()) for w in want.values())
+    worst = 0.0
+    for k in sorted(want):
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.shape == w.shape, (k, g.shape, w.shape)
+        if zero and k.endswith(zero):
+            assert max(np.abs(w).max(), np.abs(g).max()) <= 1e-6 * top, k
+            continue
+        bound = STEP_TOLS["grad_rtol"] * np.abs(w) + share * np.abs(w).max()
+        ratio = float((np.abs(g - w) / np.maximum(bound, 1e-30)).max())
+        assert ratio <= 1.0, (k, ratio)
+        worst = max(worst, ratio)
+    return worst
+
+
+def check_params(got, want, before, grads, lr, scale_of=lambda k: 1.0):
+    """Parameters after one step, ``got`` against ``want`` (flat {name:
+    array}); ``before``: the leaves before it, ``grads``: the reference
+    gradients, ``scale_of(name)``: the leaf's lr scale. Within 1e-5 of
+    max(|p before|, |p after|) where |g| > 1e-3 x the tensor's max and |g| >
+    1e-5; within 2 x lr x scale elsewhere (AdamW's first step is about lr x
+    sign(g), and rounding can flip the sign of a near-zero gradient); frozen
+    leaves (scale 0) equal. Returns the worst error over its bound."""
+    assert set(got) == set(want), set(got) ^ set(want)
+    worst = 0.0
+    for k in sorted(want):
+        p, w, scale = np.asarray(got[k]), np.asarray(want[k]), scale_of(k)
+        assert p.shape == w.shape, (k, p.shape, w.shape)
+        if scale == 0.0:
+            np.testing.assert_array_equal(p, w, err_msg=k)
+            continue
+        g = np.abs(grads[k])
+        big = (g > 1e-3 * g.max()) & (g > 1e-5)
+        err = np.abs(p - w)
+        if big.any():
+            bound = 1e-5 * np.maximum(np.abs(w), np.abs(before[k]))[big]
+            ratio = float((err[big] / bound).max())
+            assert ratio <= 1.0, (k, ratio)
+            worst = max(worst, ratio)
+        if (~big).any():
+            assert err[~big].max() <= 2 * lr * scale, k
+    return worst
+
+
+def hold_step(card, cpu, before, out_card, out_cpu, lr, scale_of=lambda k: 1.0,
+              grad_share=STEP_TOLS["grad_share"], zero=()):
+    """One training step on the card (``card``, the module after it) against
+    the same step on the CPU: the loss and aux within rtol 1e-5, the
+    gradients by ``check_grads``, the parameters by ``check_params``.
+    Returns the worst gradient and parameter errors over their bounds."""
+    from videotofaces_tpu_torch.train.optim import leaves
+
+    (loss_c, aux_c), (loss_p, aux_p) = out_card, out_cpu
+    np.testing.assert_allclose(float(loss_c), float(loss_p), rtol=STEP_TOLS["loss_rtol"])
+    for k in aux_p:
+        np.testing.assert_allclose(float(aux_c[k]), float(aux_p[k]),
+                                   rtol=STEP_TOLS["loss_rtol"], err_msg=k)
+    grads = {k: t.grad.numpy() for k, t in leaves(cpu)}
+    worst_g = check_grads({k: t.grad.cpu().numpy() for k, t in leaves(card)}, grads,
+                          grad_share, zero)
+    worst_p = check_params({k: t.detach().cpu().numpy() for k, t in leaves(card)},
+                           {k: t.detach().numpy() for k, t in leaves(cpu)},
+                           before, grads, lr, scale_of)
+    return worst_g, worst_p
+
+
+class FaceNetRouting:
+    """FaceNet's branch points in one step: each ReLU's mask and each
+    max-pool's argmax, in call order. ``record()`` runs the model as it is
+    and keeps them; ``replay()`` makes another run take the same branches
+    and counts, per call, where its own would differ (``flips``).
+
+    Two float32 runs round differently, and a value within rounding of a
+    ReLU's 0, or of the largest value of its max-pool window, takes the
+    other branch on one of them: the gradient then moves by a whole
+    position's share (1/72 of a weight gradient at Block17's 3 x 3 x batch
+    8 at 75 px). With the branches pinned, the two runs compute one
+    function, and float32 tolerances hold them to each other."""
+
+    def __init__(self):
+        self.decisions, self.flips = [], []
+
+    @contextlib.contextmanager
+    def _patched(self, relu, pool):
+        import torch
+
+        from videotofaces_tpu_torch.models import facenet as FN
+
+        saved = torch.relu, FN.max_pool
+        torch.relu, FN.max_pool = relu, pool
+        try:
+            yield
+        finally:
+            torch.relu, FN.max_pool = saved
+
+    def record(self):
+        import torch
+        import torch.nn.functional as F
+
+        relu = torch.relu
+
+        def rec_relu(t):
+            self.decisions.append(("relu", t.detach() > 0))
+            return relu(t)
+
+        def rec_pool(t):
+            out, idx = F.max_pool2d(t, 3, 2, return_indices=True)
+            self.decisions.append(("pool", idx))
+            return out
+
+        return self._patched(rec_relu, rec_pool)
+
+    def replay(self):
+        import torch.nn.functional as F
+
+        it = iter(self.decisions)
+
+        def take(kind, t, own):
+            k, d = next(it)
+            assert k == kind, (k, kind)
+            d = d.to(t.device)
+            self.flips.append((kind, int((own != d).sum()), d.numel()))
+            return d
+
+        def relu(t):
+            return t * take("relu", t, t.detach() > 0)
+
+        def pool(t):
+            idx = take("pool", t, F.max_pool2d(t.detach(), 3, 2, return_indices=True)[1])
+            return t.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+        return self._patched(relu, pool)
+
+    def flip_counts(self):
+        """{kind: (calls with a flip, calls, flipped elements, elements)}."""
+        out = {}
+        for kind, n, size in self.flips:
+            c, k, f, e = out.get(kind, (0, 0, 0, 0))
+            out[kind] = (c + (n > 0), k + 1, f + n, e + size)
+        return out
+
+
+def card_vs_cpu_step(dev, build, make_opt, step, batch, lr, scale_of=lambda k: 1.0,
+                     grad_share=STEP_TOLS["grad_share"], zero=(), routing=None):
+    """Build the same model on the card and on the CPU, take one step of
+    ``step(model, opt, *batch)`` on each in precision "highest", and hold
+    the card to the CPU (``hold_step``). ``routing`` (a ``FaceNetRouting``):
+    the card's branches are recorded and the CPU takes them. Returns (loss,
+    the clip's global norm, worst ratios)."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+
+    runs = []
+    with config.precision_scope("highest"):
+        for i, d in enumerate((dev, torch.device("cpu"))):
+            model = build().to(d)
+            before = {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items()}
+            opt = make_opt(model)
+            pin = (contextlib.nullcontext() if routing is None
+                   else routing.replay() if i else routing.record())
+            with pin:
+                loss, aux = step(model, opt, *(t.to(d) for t in batch))
+            # aux: the detector's loss parts, or the active fraction / accuracy
+            runs.append((model, opt, before,
+                         (loss, aux if isinstance(aux, dict) else {"aux": aux})))
+    (mc, oc, _, out_c), (mp, op, before, out_p) = runs
+    if op.clip_norm is not None:
+        np.testing.assert_allclose(float(oc.grad_norm), float(op.grad_norm),
+                                   rtol=STEP_TOLS["grad_rtol"])
+    worst = hold_step(mc, mp, before, out_c, out_p, lr, scale_of, grad_share, zero)
+    return float(out_p[0]), float(op.grad_norm), worst
+
+
+def train_yolo(dev):
+    """4r: ``finetune_yolo_full`` and ``finetune_yolo_head`` at the JAX
+    defaults (batch 8, ``max_side`` 608, lr 1e-4) on seeded weights, 16
+    synthetic 1080p frames (canvas 352 x 608), 3 epochs (6 steps) each, in
+    precision "default" and "highest"; then one full step at 64 px on the
+    card against the CPU."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.models import yolo as Y
+    from videotofaces_tpu_torch.train import detector as TD
+
+    params = yolo_params(0)
+    frames, gts = face_frames(31)
+    canvas = Y.canvas_shape(*Y.resized_shape(H, W, 608))
+    assert canvas == (352, 608), canvas
+    ops = forward_ops(Y.YOLOv3.from_jax(params).to(dev), torch.zeros((8, 3) + canvas, device=dev),
+                      torch.nn.Conv2d)
+    fwd = sum(ops.values())
+    # a step: the forward, then the input and the weight gradients of each
+    # convolution (2 x the forward); the head-only step runs the trunk forward
+    # only and needs no input gradient at the head's first convolutions
+    step_ops = {"full": 3 * fwd, "head": fwd + 2 * ops["head"]}
+    log("   batch 8 on %s: %.1f GFLOP forward (%.2f per image), full step %.1f GFLOP, "
+        "head step %.1f GFLOP; %d faces in %d frames"
+        % (canvas, fwd / 1e9, fwd / 8e9, step_ops["full"] / 1e9, step_ops["head"] / 1e9,
+           sum(len(g) for g in gts), len(frames)))
+    for prec, peak_name in (("default", "tf32"), ("highest", "float32")):
+        for kind, fn, step_name in (("full", TD.finetune_yolo_full, "train_step_full"),
+                                    ("head", TD.finetune_yolo_head, "train_step")):
+            times = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with config.precision_scope(prec), step_timer(TD, step_name, times):
+                t0 = time.perf_counter()
+                tree, hist = fn(frames, gts, epochs=3, params=params)
+                wall = time.perf_counter() - t0
+            log(step_line("%s, %s" % (kind, prec), times, 8, torch.cuda.max_memory_allocated(),
+                          step_ops[kind] / PEAK_OPS[peak_name] * 1e3))
+            log("      loop %.2f s for %d steps; history %s" % (
+                wall, len(times), ["%.5f" % v for v in hist]))
+            assert len(times) == 6 and len(hist) == 3 and np.isfinite(hist).all(), hist
+            assert sorted(tree) == ["backbone", "head", "neck"]
+    small, small_gts = small_faces(5, 2)
+    priors, strides = Y.flat_priors_and_strides((64, 64))
+    data = TD._prepare_yolo_data(small, small_gts, priors, 0.5, 0.4, 64, 64, 64, 64)
+    batch = [torch.from_numpy(data[0]).permute(0, 3, 1, 2).contiguous()] + [
+        torch.from_numpy(a) for a in (data[1], data[2], priors, strides)]
+    scales = {"backbone": 0.1, "neck": 0.3, "head": 1.0}
+    loss, norm, worst = card_vs_cpu_step(
+        dev, lambda: Y.YOLOv3.from_jax(params), lambda m: TD.layerwise_tx(m, 1e-3),
+        TD.train_step_full, batch, 1e-3,
+        lambda k: 0.0 if TD._is_bn_stat(k) else scales[k.split(".")[0]])
+    log("   full step at 64 px, batch 2, 'highest': card = CPU (loss %.6f, global norm %.4f "
+        "> clip 1.0; worst gradient error %.3f and parameter error %.3f of their bounds)"
+        % (loss, norm, *worst))
+    assert norm > 1.0
+
+
+def train_facenet(dev):
+    """4s: ``finetune_facenet`` at 160 px, batch 32, ``bank_size`` 0 and
+    256, precision "default", 128 crops of 16 identities, 2 epochs (8
+    steps); then one step at 75 px on the card against the CPU, which takes
+    the card's ReLU masks and max-pool argmaxes (``FaceNetRouting``)."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.models import facenet as FN
+    from videotofaces_tpu_torch.train import triplet as TT
+    from videotofaces_tpu_torch.train.optim import AdamW, leaves
+
+    tree = facenet_params(3, calibrate_on=dev)
+    crops, labels = identity_crops(8, 16, 8, 160)
+    ops = forward_ops(FN.InceptionResnetV1.from_jax(tree).to(dev),
+                      torch.zeros((32, 3, 160, 160), device=dev),
+                      (torch.nn.Conv2d, torch.nn.Linear))
+    step_ops = 3 * sum(ops.values())
+    for bank in (0, 256):
+        times = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        name = "train_step_xbm" if bank else "train_step"
+        with config.precision_scope("default"), step_timer(TT, name, times):
+            out, hist = TT.finetune_facenet(crops, labels, epochs=2, batch_size=32,
+                                            params=tree, bank_size=bank)
+        log(step_line("bank_size %d, default" % bank, times, 32,
+                      torch.cuda.max_memory_allocated(), step_ops / PEAK_OPS["tf32"] * 1e3))
+        log("      history %s" % ["%.5f" % v for v in hist])
+        assert len(times) == 8 and np.isfinite(hist).all() and hist[0] > 0.0, hist
+        assert set(out) == set(tree)
+    # 8 crops of 8 bases under 4 labels: hinges the random network cannot
+    # satisfy, so that the step has gradients to compare
+    small, _ = identity_crops(9, 8, 1, 75)
+    x = FN.preprocess_uint8(torch.from_numpy(np.ascontiguousarray(small[..., ::-1])))
+    batch = [x.permute(0, 3, 1, 2).contiguous(), torch.arange(8) // 2]
+    small_tree = calibrated_head_bn(tree, batch[0])
+    routing = FaceNetRouting()
+    loss, _, worst = card_vs_cpu_step(
+        dev, lambda: FN.InceptionResnetV1.from_jax(small_tree),
+        lambda m: AdamW(leaves(m), 1e-5), TT.train_step, batch, 1e-5, grad_share=1e-4,
+        routing=routing)
+    assert loss > 0.0
+    log("   step at 75 px, batch 8, 'highest': card = CPU on the card's ReLU masks and "
+        "max-pool argmaxes (loss %.6f; worst gradient error %.3g and parameter error %.3g "
+        "of their bounds; BatchNorm statistics trained)" % (loss, *worst))
+    log("      the CPU's own branches differ from the card's: %s"
+        % "; ".join("%s %d of %d calls, %d of %d elements" % (k, *v)
+                    for k, v in sorted(routing.flip_counts().items())))
+    # the same step on the CPU on its own branches: what the flips move
+    model = FN.InceptionResnetV1.from_jax(small_tree)
+    with config.precision_scope("highest"):
+        TT.train_step(model, AdamW(leaves(model), 1e-5), *batch)
+    own = {k: t.grad for k, t in leaves(model)}
+    model = FN.InceptionResnetV1.from_jax(small_tree).to(dev)
+    with config.precision_scope("highest"):
+        TT.train_step(model, AdamW(leaves(model), 1e-5), *(t.to(dev) for t in batch))
+    share, at = max((float((t.grad.cpu() - own[k]).abs().max() / own[k].abs().max()), k)
+                    for k, t in leaves(model))
+    log("      on its own branches (not held: the flips above decide it): worst gradient "
+        "difference %.3g of the tensor's max, at %s" % (share, at))
+
+
+def calibrated_head_bn(tree, x):
+    """``tree`` with ``head_bn``'s mean and var set to the head features'
+    statistics over ``x`` (NCHW, on the CPU), so that the batch's
+    embeddings spread and its hardest pairs are not near-ties."""
+    import copy
+
+    import torch
+
+    from videotofaces_tpu_torch.models.facenet import InceptionResnetV1
+
+    model = InceptionResnetV1.from_jax(tree)
+    feats = []
+    hook = model.head.register_forward_hook(lambda m, i, o: feats.append(o))
+    with torch.no_grad():
+        model(x)
+    hook.remove()
+    out = copy.deepcopy(tree)
+    f = feats[0].double().numpy()
+    out["head_bn"]["mean"] = f.mean(0).astype(np.float32)
+    out["head_bn"]["var"] = (f.var(0) + 1e-6).astype(np.float32)
+    return out
+
+
+def train_vit(dev):
+    """4t: ``ViTClassifier`` B16 (128 px, dim 768, depth 12) with 64
+    classes, batch 64, with ``remat`` False and True: one step each in
+    "highest" from the same seeded weights (losses and gradients equal to
+    float rounding), then 6 steps each in "default" (ms per step, peak
+    memory); then one small step (img 32, dim 64, depth 2) on the card
+    against the CPU."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.train import trainer as TR
+    from videotofaces_tpu_torch.train.optim import leaves
+
+    classes, b = 64, 64
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((b, 3, 128, 128), generator=gen).to(dev)
+    y = torch.randint(0, classes, (b,), generator=gen).to(dev)
+    sd = TR.ViTClassifier.seeded(classes, seed=0).state_dict()
+    n, d, depth = 65, 768, 12
+    # per image: patch embedding, q/k/v/proj and the MLP (12 N d^2
+    # multiply-adds per block), the two attention products (2 N^2 d), head
+    fwd = 2 * b * (64 * 768 * d + depth * (12 * n * d * d + 2 * n * n * d) + d * classes)
+    first = {}
+    for remat in (False, True):
+        model = TR.ViTClassifier(classes, remat=remat)
+        model.load_state_dict(sd)
+        model.to(dev)
+        opt = TR.create_train_state(model)
+        with config.precision_scope("highest"):
+            loss, _ = TR.train_step(model, opt, x, y)
+        first[remat] = (float(loss), {k: t.grad.detach().clone() for k, t in leaves(model)})
+        times = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with config.precision_scope("default"):
+            for _ in range(6):
+                t0 = time.perf_counter()
+                loss, _ = TR.train_step(model, opt, x, y)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        assert np.isfinite(float(loss))
+        log(step_line("remat %s, default" % remat, times, b, torch.cuda.max_memory_allocated(),
+                      (4 if remat else 3) * fwd / PEAK_OPS["tf32"] * 1e3))
+        del model, opt
+    (l0, g0), (l1, g1) = first[False], first[True]
+    np.testing.assert_allclose(l1, l0, rtol=1e-6)
+    worst = 0.0
+    for k in g0:
+        diff = float((g1[k] - g0[k]).abs().max())
+        worst = max(worst, diff / (1e-5 * float(g0[k].abs().max()) + 1e-30))
+        torch.testing.assert_close(g1[k], g0[k], rtol=1e-5, atol=1e-5 * float(g0[k].abs().max()),
+                                   msg=k)
+    log("   remat vs plain, 'highest': loss %.6f vs %.6f; worst gradient difference %.3f of "
+        "1e-5 x the tensor's max" % (l1, l0, worst))
+    small = dict(img_size=32, patch_size=16, dim=64, depth=2)
+    gen = torch.Generator().manual_seed(6)
+    batch = [torch.randn((8, 3, 32, 32), generator=gen),
+             torch.randint(0, 5, (8,), generator=gen)]
+    loss, _, worst = card_vs_cpu_step(
+        dev, lambda: TR.ViTClassifier.seeded(5, seed=1, **small),
+        lambda m: TR.create_train_state(m, 1e-3), TR.train_step, batch, 1e-3,
+        zero=("attn.k.bias",))
+    log("   small classifier step (img 32, dim 64, depth 2), 'highest': card = CPU (loss "
+        "%.6f; worst gradient error %.3f and parameter error %.3f of their bounds)"
+        % (loss, *worst))
+
+
 def main():
     import torch
 
@@ -1845,6 +2369,16 @@ def main():
     with phase("4q. concurrent clients: live defaults (YOLOv3 + FaceNet) on a unix socket, "
                "4 clients x 3 extract, one in-process caller under precision 'highest'"):
         served_concurrent(dev)
+
+    with phase("4r. training: finetune_yolo_full / finetune_yolo_head (YOLOv3), batch 8, "
+               "max_side 608, 16 synthetic 1080p frames, 'default' and 'highest'"):
+        train_yolo(dev)
+
+    with phase("4s. training: finetune_facenet at 160 px, batch 32, bank_size 0 and 256"):
+        train_facenet(dev)
+
+    with phase("4t. training: ViTClassifier B16 at 128 px, batch 64, remat False and True"):
+        train_vit(dev)
 
     if failures:
         print("chip_smoke: %d phase(s) failed:\n  %s" % (len(failures),

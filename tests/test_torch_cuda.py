@@ -522,3 +522,71 @@ def test_roi_align_kernel_edge_cases(case, dtype):
             [0, 0, 1, 1, 1], [1, 1, 2, 2, 2], [2, 3, 3, 3, 3]]
     else:
         assert (got != 0).any()
+
+
+# -- training steps: the card against the CPU (chip_smoke.py 4r-4t) ------------
+# chip_smoke.card_vs_cpu_step runs one step on each in precision "highest" and
+# holds the card to the CPU at the tolerances of the CPU parity tests
+# (chip_smoke.check_grads / check_params): loss rtol 1e-5, gradients rtol
+# 1e-4 and 1e-5 x the tensor's max (1e-4 for FaceNet, as in its CPU test),
+# parameters 1e-5 relative.
+
+
+@pytest.mark.cuda
+def test_yolo_full_step_card_matches_cpu():
+    _need_cuda()
+    import chip_smoke as CS
+    from videotofaces_tpu_torch.train import detector as TD
+
+    params = CS.yolo_params(0)
+    frames, gts = CS.small_faces(5, 2)
+    priors, strides = TY.flat_priors_and_strides((64, 64))
+    canvas, obj_t, box_t = TD._prepare_yolo_data(frames, gts, priors, 0.5, 0.4, 64, 64, 64, 64)
+    batch = [torch.from_numpy(canvas).permute(0, 3, 1, 2).contiguous()] + [
+        torch.from_numpy(a) for a in (obj_t, box_t, priors, strides)]
+    scales = {"backbone": 0.1, "neck": 0.3, "head": 1.0}
+    _, norm, _ = CS.card_vs_cpu_step(
+        torch.device("cuda"), lambda: TY.YOLOv3.from_jax(params),
+        lambda m: TD.layerwise_tx(m, 1e-3), TD.train_step_full, batch, 1e-3,
+        lambda k: 0.0 if TD._is_bn_stat(k) else scales[k.split(".")[0]])
+    assert norm > 1.0                   # the clip acts
+
+
+@pytest.mark.cuda
+def test_triplet_step_card_matches_cpu():
+    _need_cuda()
+    import chip_smoke as CS
+    from videotofaces_tpu_torch.models import facenet as TF
+    from videotofaces_tpu_torch.train import triplet as TT
+    from videotofaces_tpu_torch.train.optim import AdamW, leaves
+
+    crops, _ = CS.identity_crops(9, 8, 1, 75)
+    x = TF.preprocess_uint8(torch.from_numpy(np.ascontiguousarray(crops[..., ::-1])))
+    batch = [x.permute(0, 3, 1, 2).contiguous(), torch.arange(8) // 2]
+    tree = CS.calibrated_head_bn(CS.facenet_params(3), batch[0])
+    # the CPU takes the card's ReLU masks and max-pool argmaxes, as in
+    # chip_smoke.py 4s: a value within float32 rounding of a branch point can
+    # take another branch on each device and move a gradient by a position's
+    # share
+    loss, _, _ = CS.card_vs_cpu_step(
+        torch.device("cuda"), lambda: TF.InceptionResnetV1.from_jax(tree),
+        lambda m: AdamW(leaves(m), 1e-5), TT.train_step, batch, 1e-5, grad_share=1e-4,
+        routing=CS.FaceNetRouting())
+    assert loss > 0.0
+
+
+@pytest.mark.cuda
+def test_classifier_step_card_matches_cpu():
+    _need_cuda()
+    import chip_smoke as CS
+    from videotofaces_tpu_torch.train import trainer as TR
+
+    small = dict(img_size=32, patch_size=16, dim=64, depth=2)
+    gen = torch.Generator().manual_seed(6)
+    batch = [torch.randn((8, 3, 32, 32), generator=gen),
+             torch.randint(0, 5, (8,), generator=gen)]
+    for remat in (False, True):
+        CS.card_vs_cpu_step(
+            torch.device("cuda"), lambda: TR.ViTClassifier.seeded(5, seed=1, remat=remat, **small),
+            lambda m: TR.create_train_state(m, 1e-3), TR.train_step, batch, 1e-3,
+            zero=("attn.k.bias",))

@@ -195,12 +195,17 @@ def test_warmup_precompiles_buckets(make_service):
     assert set(svc.detector.seen) == {4}
 
 
-def _wait_for(path):
+def _connect(client_cls, path):
+    """A client of the daemon at ``path``. The socket file appears at
+    bind(), a moment before listen(), so a refused connection is retried."""
     for _ in range(100):
         if os.path.exists(path):
-            return
+            try:
+                return client_cls(path)
+            except ConnectionRefusedError:
+                pass
         time.sleep(0.05)
-    pytest.fail("daemon socket never appeared")
+    pytest.fail("daemon socket never accepted a connection")
 
 
 def test_socket_daemon_round_trip(tmp_path, make_service):
@@ -208,9 +213,8 @@ def test_socket_daemon_round_trip(tmp_path, make_service):
     sock_path = str(tmp_path / "v2f.sock")
     t = threading.Thread(target=serve_forever, args=(svc, sock_path), daemon=True)
     t.start()
-    _wait_for(sock_path)
 
-    client = ServeClient(sock_path)
+    client = _connect(ServeClient, sock_path)
     try:
         assert client.ping() is True
 
@@ -401,8 +405,7 @@ def test_wire_compatible_across_packages(tmp_path, client_pkg, server_pkg):
     sock_path = str(tmp_path / "v2f.sock")
     t = threading.Thread(target=server.serve_forever, args=(svc, sock_path), daemon=True)
     t.start()
-    _wait_for(sock_path)
-    client = client_mod.ServeClient(sock_path)
+    client = _connect(client_mod.ServeClient, sock_path)
     try:
         assert client.ping() is True
         frames = _frames(6, seed=4)

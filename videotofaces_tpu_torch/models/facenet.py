@@ -4,7 +4,7 @@
 Architecture parity target: encoders/facenet.py:15-155 of the reference —
 stem of 6 conv units, 5x Block35(0.17) -> Mixed_6a -> 10x Block17(0.1) ->
 Mixed_7a -> 5x Block8(0.2) -> Block8(1.0, no relu) -> global average pool ->
-Linear(1792->512, no bias) -> BatchNorm1d(eps=1e-3) -> L2 normalize. Every
+Linear(1792->512, no bias) -> BatchNorm(eps=1e-3) -> L2 normalize. Every
 conv unit is conv + BN(1e-3) + ReLU with no conv bias.
 
 Inputs: [B, 3, 160, 160] float32 RGB normalized by (x - 127.5) / 128 (the
@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.weights import facenet_from_jax
-from .layers import ConvUnit, init_uniform_fan_in_
+from .layers import BatchNorm, ConvUnit, init_uniform_fan_in_
 
 
 def cu(cin, cout, k, s=1, p=0):
@@ -130,7 +130,7 @@ class InceptionResnetV1(nn.Module):
             self.add_module(f"c{i}", Block8(0.2))
         self.c5 = Block8(1.0, relu=False)
         self.head = nn.Linear(1792, 512, bias=False)
-        self.head_bn = nn.BatchNorm1d(512, eps=1e-3)
+        self.head_bn = BatchNorm(512, eps=1e-3)
 
     def forward(self, x):
         for i in range(3):

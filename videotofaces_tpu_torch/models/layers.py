@@ -3,7 +3,18 @@ the parts MTCNN, FaceNet, ResNet/Faster R-CNN and ViT use). Maps are NCHW.
 The JAX package's ``max_pool2d`` is ``F.max_pool2d`` here (with
 ``ceil_mode=True`` for MTCNN: the last window may run off the edge and takes
 the max over what is inside; -inf padding for the ResNet stem).
-``init_uniform_fan_in_`` gives every model its seeded random weights."""
+``init_uniform_fan_in_`` gives every model its seeded random weights.
+
+``BatchNorm`` is the JAX package's ``BatchNormInference``: it normalizes by
+the stored statistics whatever the module's mode, so ``.train()`` changes
+neither its output nor its buffers. The statistics are buffers (so that
+``parameters()`` holds the trained weights only), which a training step
+may mark ``requires_grad``: the JAX package's statistics are flax params,
+and its training differentiates them (``train/optim.py`` collects them with
+the parameters). With a statistic that requires grad, and grad mode on, the
+module computes the JAX formula as explicit ops, through which autograd
+reaches all four leaves; otherwise it keeps ``F.batch_norm(training=False)``
+and its rounding, the inference path the parity tests pin."""
 
 import math
 
@@ -38,6 +49,29 @@ class PConv(nn.Module):
         return self.prelu(self.conv(x))
 
 
+class BatchNorm(nn.Module):
+    """``(x - mean) / sqrt(var + eps) * scale + bias`` over axis 1 of an
+    input of any rank, on the stored statistics (module docstring). Names
+    follow ``nn.BatchNorm*``: ``weight``, ``bias`` (parameters),
+    ``running_mean``, ``running_var`` (buffers)."""
+
+    def __init__(self, features, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        mean, var = self.running_mean, self.running_var
+        if torch.is_grad_enabled() and (mean.requires_grad or var.requires_grad):
+            shape = (-1,) + (1,) * (x.dim() - 2)
+            return ((x - mean.view(shape)) / torch.sqrt(var.view(shape) + self.eps)
+                    * self.weight.view(shape) + self.bias.view(shape))
+        return F.batch_norm(x, mean, var, self.weight, self.bias, False, 0.0, self.eps)
+
+
 class ConvUnit(nn.Module):
     """Conv2d + inference BatchNorm [+ residual add] [+ activation] — the
     JAX package's ``ConvUnit`` as the port's models use it. ``activ``: None,
@@ -45,9 +79,9 @@ class ConvUnit(nn.Module):
     0.1 * x)``). With ``bn_eps=None`` there is no BatchNorm and the
     convolution has a bias (the FPN laterals and smooths and the RPN conv).
 
-    BatchNorm is ``nn.BatchNorm2d`` in eval mode, ``(x - mean) /
-    sqrt(var + eps) * scale + bias`` on the running statistics; it is kept
-    apart from the convolution (folding it in would change the rounding).
+    BatchNorm is ``BatchNorm``, ``(x - mean) / sqrt(var + eps) * scale +
+    bias`` on the stored statistics in either mode; it is kept apart from
+    the convolution (folding it in would change the rounding).
     Parameter names follow the JAX tree: ``conv.{weight, bias}``,
     ``bn.{weight, bias, running_mean, running_var}``."""
 
@@ -56,7 +90,7 @@ class ConvUnit(nn.Module):
         if activ not in (None, "relu", "lrelu_0.1"):
             raise ValueError(f"unsupported activation {activ!r}")
         self.conv = nn.Conv2d(cin, cout, k, s, p, bias=bn_eps is None)
-        self.bn = None if bn_eps is None else nn.BatchNorm2d(cout, eps=bn_eps)
+        self.bn = None if bn_eps is None else BatchNorm(cout, bn_eps)
         self.activ = activ
 
     def forward(self, x, add=None):

@@ -19,6 +19,7 @@ Inputs: [B, 3, 128, 128] float32 RGB normalized by (x - 127.5) / 127.5.
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.weights import vit_from_jax
 from .layers import LayerNorm, init_uniform_fan_in_
@@ -82,12 +83,15 @@ class ViT(nn.Module):
             self.add_module(f"block{i}", Block(dim, dim // 64, eps))
         self.norm = LayerNorm(dim, eps)
 
-    def forward(self, x):
+    def forward(self, x, remat=False):
+        """``remat``: recompute each block's activations in the backward
+        pass (``torch.utils.checkpoint``) instead of keeping them."""
         x = self.patch_embedding(x).flatten(2).transpose(1, 2)    # [B, n*n, dim], row-major
         x = torch.cat([self.class_token.expand(x.shape[0], -1, -1), x], dim=1)
         x = x + self.pos_embedding
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return self.norm(x[:, 0])
 
     @classmethod

@@ -4,7 +4,10 @@ Converted checkpoints live in ``<repo>/weights/*.npz`` as flat "a/b/c" keys in
 the JAX package's layout (HWIO conv kernels, [in, out] dense kernels — see
 tools/convert_weights.py). The port reads the same files and turns the nested
 numpy tree into ``state_dict``s for its ``nn.Module``s with ``mtcnn_from_jax``,
-``facenet_from_jax``, ``frcnn_from_jax``, ``vit_from_jax`` and ``yolo_from_jax``.
+``facenet_from_jax``, ``frcnn_from_jax``, ``vit_from_jax``, ``yolo_from_jax``
+and ``classifier_from_jax``. ``state_dict_to_jax`` (as ``yolo_to_jax``,
+``facenet_to_jax``, ``vit_to_jax`` and ``classifier_to_jax``) turns a state
+dict back into the JAX tree, bit for bit, for the fine-tune loops' results.
 """
 
 import os
@@ -101,14 +104,12 @@ _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
 
 def _with_bn_names(sd, bn_parents):
     """Rename BatchNorm leaves {scale, bias, mean, var} under a parent named
-    in ``bn_parents`` to {weight, bias, running_mean, running_var}, adding a
-    zero ``num_batches_tracked``."""
+    in ``bn_parents`` to {weight, bias, running_mean, running_var}."""
     out = {}
     for key, val in sd.items():
         parts = key.split(".")
         if len(parts) > 1 and parts[-2] in bn_parents:
             parts[-1] = _BN_NAMES[parts[-1]]
-            out[".".join(parts[:-1] + ["num_batches_tracked"])] = torch.tensor(0)
         out[".".join(parts)] = val
     return out
 
@@ -119,7 +120,7 @@ def facenet_from_jax(params_np):
     ``*/out/{kernel, bias}`` to a conv with bias, ``head/kernel`` [1792, 512]
     -> [512, 1792], and every BatchNorm (``*/bn``, ``head_bn``)
     ``{scale, bias, mean, var}`` -> ``{weight, bias, running_mean,
-    running_var}`` plus a zero ``num_batches_tracked``."""
+    running_var}``."""
     return _with_bn_names(jax_to_state_dict(params_np), ("bn", "head_bn"))
 
 
@@ -165,5 +166,35 @@ def yolo_from_jax(params_np):
     arrays) -> the port's ``state_dict``: ``*/conv/kernel`` HWIO -> OIHW,
     the heads' ``pred*/{kernel, bias}`` to convolutions with a bias, and
     every BatchNorm ``*/bn/{scale, bias, mean, var}`` -> ``{weight, bias,
-    running_mean, running_var}`` plus a zero ``num_batches_tracked``."""
+    running_mean, running_var}``."""
     return _with_bn_names(jax_to_state_dict(params_np), ("bn",))
+
+
+def state_dict_to_jax(sd):
+    """A port ``state_dict`` -> the JAX package's nested numpy tree, the
+    inverse of the ``*_from_jax`` bridges: 4-d ``weight`` OIHW -> HWIO
+    ``kernel``, 2-d ``weight`` [out, in] -> [in, out] ``kernel``, 1-d
+    ``weight`` (a BatchNorm's or LayerNorm's) -> ``scale``, ``running_mean``
+    / ``running_var`` -> ``mean`` / ``var``; every other leaf as it is. The
+    port names no other 1-d ``weight``, so the rule is the same for every
+    model; values are copied bit for bit in their dtype."""
+    names = {"running_mean": "mean", "running_var": "var"}
+    flat = {}
+    for key, val in sd.items():
+        parts = key.split(".")
+        val = val.detach().cpu().numpy()
+        if parts[-1] == "weight":
+            if val.ndim == 4:
+                parts[-1], val = "kernel", val.transpose(2, 3, 1, 0)
+            elif val.ndim == 2:
+                parts[-1], val = "kernel", val.T
+            else:
+                parts[-1] = "scale"
+        parts[-1] = names.get(parts[-1], parts[-1])
+        flat["/".join(parts)] = np.ascontiguousarray(val)
+    return unflatten(flat)
+
+
+yolo_to_jax = facenet_to_jax = vit_to_jax = classifier_to_jax = state_dict_to_jax
+# the ViTClassifier tree {"backbone", "head"}: vit_from_jax's rules cover both
+classifier_from_jax = vit_from_jax
