@@ -99,7 +99,19 @@ any failed, printing no result line):
    t. the ``ViTClassifier`` B16 step at 128 px, batch 64, with ``remat``
       False and True (one step each in "highest" agreeing to float
       rounding, then ms per step and peak memory in "default"), and one
-      small step (img 32, dim 64, depth 2) on the card against the CPU.
+      small step (img 32, dim 64, depth 2) on the card against the CPU;
+   u. data parallelism on a mesh of two shards on cuda:0
+      (``make_mesh(devices=[cuda:0, cuda:0])``, ``sharded_vs_single``):
+      ``MtcnnDetector(bf16=True)`` (K1-K3) and ``FrcnnDetector(bf16=True)``
+      (K4) on the 4a batch, ``FaceNetEncoder(device_resize=True)`` (K5) on
+      128 crops, and ``dedup_cosine``, ``kmeans_fit`` (k = 3) and
+      ``silhouette_score`` on 4e's 4,096 x 512 embeddings, each held to the
+      same call with ``mesh=None`` (ms per call of both, the launches of one
+      call per shard); ``mesh="auto"`` keeps one device, so 4a-4t ran on
+      one device;
+   v. with two cards or more: the same on a cuda:0 + cuda:1 mesh, and every
+      kernel (and ``MtcnnDetector``) on cuda:1 called while the thread's
+      current device is cuda:0; with one card it prints why it was skipped.
 
 The YOLO path (4l-4n, 4q) runs no hand-written kernel: its convolutions are
 cuDNN's and its resize the matrix products of ``ops/resize.py``; its
@@ -1654,6 +1666,228 @@ def train_vit(dev):
         % (loss, *worst))
 
 
+def sync_all():
+    import torch
+
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+
+
+def ms_per_call(fn, iters=3):
+    """Host ms per call (each ending in a sync of every card) after one
+    warm-up call: min and mean."""
+    fn()
+    times = []
+    for _ in range(iters):
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return min(times), float(np.mean(times))
+
+
+def launches_of(fn):
+    """The kernel launches of one ``fn()`` call, every count set to 0
+    before it."""
+    reset_launches()
+    fn()
+    sync_all()
+    return read_launches()
+
+
+def assert_same_boxes(got, want, what):
+    """Per image: equal counts, every detection of each side matched by one
+    of the other at IoU >= 0.99 (bf16: cuDNN picks its algorithm per batch
+    shape, so the two calls round differently)."""
+    assert len(got) == len(want), what
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert len(g) == len(w), "%s image %d: %d detections, single device %d" % (
+            what, i, len(g), len(w))
+        assert matched_share(g, w) == 1.0 and matched_share(w, g) == 1.0, (what, i)
+
+
+def _joined(parts):
+    """Per-block wrapper results joined in block order."""
+    if isinstance(parts[0], np.ndarray):
+        return np.concatenate(parts)
+    if isinstance(parts[0], tuple):
+        return tuple(_joined([p[j] for p in parts]) for j in range(len(parts[0])))
+    return [a for p in parts for a in p]
+
+
+def _identical(a, b):
+    if isinstance(a, np.ndarray):
+        return a.shape == b.shape and np.array_equal(a, b)
+    return len(a) == len(b) and all(_identical(x, y) for x, y in zip(a, b))
+
+
+def sharded_vs_single(devices, frames, crops, x):
+    """4u / 4v: each wrapper with ``mesh=make_mesh(devices=devices)``
+    against the same wrapper with ``mesh=None`` on ``devices[0]``:
+    ``MtcnnDetector(bf16=True)`` (K1-K3) and ``FrcnnDetector(bf16=True)``
+    (K4) on ``frames``, ``FaceNetEncoder(device_resize=True)`` (K5) on
+    ``crops``. Two holds: (1) the sharded call equals, bit for bit, the
+    single-device calls on the shards' blocks (the same shapes, so the same
+    cuDNN algorithms); (2) against one single-device call on the whole
+    batch, MTCNN bf16 ("default") has equal counts and IoU >= 0.99 matches,
+    FaceNet ("highest") is within atol 1e-4, and the R-CNN in float32 and
+    "highest" has equal counts and IoU >= 0.99 matches; its bf16 share of
+    matches is printed, not held: with 100 dense detections per image at
+    the cut-off, the batch of 2's and the batch of 1's cuDNN algorithms
+    round bf16 differently and swap borderline detections. Then
+    ``dedup_cosine``, ``kmeans_fit`` (k = 3) and ``silhouette_score`` on
+    ``x`` in "highest" (mins within 1e-6 and equal argmins; equal labels,
+    centres within 1e-5; silhouette rtol 1e-5, atol 1e-6). Prints ms per
+    call in "default" of both and the launches of one call of each, per
+    shard."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.models.wrappers import (FaceNetEncoder, FrcnnDetector,
+                                                        MtcnnDetector)
+    from videotofaces_tpu_torch.ops import cluster_scores as CSC
+    from videotofaces_tpu_torch.ops import distances as D
+    from videotofaces_tpu_torch.ops.kmeans import kmeans_fit
+    from videotofaces_tpu_torch.parallel import make_mesh, split_rows
+
+    mesh = make_mesh(devices=devices)
+    n = mesh.shape["data"]
+    dev0 = mesh.devices[0]
+    log("   mesh %r: %d shard(s), %d module copy(ies) per wrapper"
+        % (mesh, n, len(mesh.distinct)))
+    frames, crops = list(frames), list(crops)
+    mtcnn_tree, frcnn_tree, facenet_tree = seeded_params(0, 2.0), frcnn_params(0), facenet_params(5)
+    mtcnn_boxes = lambda r: [d[:, :4] for d in r]
+    frcnn_boxes = lambda r: r[0]
+    # name, wrapper, batch, precision of the holds, boxes of a result (None:
+    # embeddings), whether the whole-batch match is held, kernels launched
+    cases = (
+        ("mtcnn", lambda **kw: MtcnnDetector(params=mtcnn_tree, bf16=True, **kw), frames,
+         "default", mtcnn_boxes, True, ("pnet_level", "pool_crops")),
+        ("frcnn bf16", lambda **kw: FrcnnDetector(params=frcnn_tree, bf16=True, **kw), frames,
+         "default", frcnn_boxes, False, ("roi_align",)),
+        ("frcnn f32", lambda **kw: FrcnnDetector(params=frcnn_tree, **kw), frames,
+         "highest", frcnn_boxes, True, ()),
+        ("facenet", lambda **kw: FaceNetEncoder(params=facenet_tree, device_resize=True, **kw),
+         crops, "highest", None, True, ("resize_normalize",)))
+    for name, make, batch, prec, boxes, held, kernels_run in cases:
+        single, sharded = make(device=dev0), make(mesh=mesh)
+        with config.precision_scope(prec):
+            got = sharded(batch)
+            per_block = _joined([single(blk) for blk in split_rows(batch, mesh)])
+            want = single(batch)
+        assert _identical(got, per_block), "%s: sharded != single device per block" % name
+        if boxes is None:
+            diff = float(np.abs(got - want).max())
+            log("   %s: %d embeddings equal to the single device's on each shard's block; "
+                "max|diff| %.3g to one call on the whole batch ('%s')" % (name, len(got), diff, prec))
+            assert got.shape == want.shape and np.isfinite(got).all()
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+        else:
+            shares = [min(matched_share(g, w), matched_share(w, g))
+                      for g, w in zip(boxes(got), boxes(want))]
+            log("   %s: detections per image %s equal to the single device's on each shard's "
+                "block; matched at IoU >= 0.99 to one call on the whole batch: %s ('%s')"
+                % (name, [len(b) for b in boxes(got)], ["%.3f" % v for v in shares], prec))
+            if held:
+                assert_same_boxes(boxes(got), boxes(want), name)
+        if kernels_run:
+            with config.precision_scope("default"):
+                ms = {tag: ms_per_call(lambda w=w: w(batch)) for tag, w in
+                      (("sharded", sharded), ("single", single))}
+                counts = {tag: launches_of(lambda w=w: w(batch)) for tag, w in
+                          (("sharded", sharded), ("single", single))}
+            log("   %s: ms per batch of %d ('default'): sharded min %.2f / mean %.2f, "
+                "single device min %.2f / mean %.2f" % (name, len(batch), *ms["sharded"],
+                                                        *ms["single"]))
+            for k in kernels_run:
+                got_n, want_n = counts["sharded"][k], counts["single"][k]
+                log("   %s: %s launches, one call: sharded %d (%s per shard), single %d"
+                    % (name, k, got_n, got_n / n, want_n))
+                assert want_n > 0 and got_n == n * want_n, (name, k, got_n, want_n)
+        del single, sharded
+    with config.precision_scope("highest"):
+        t = torch.from_numpy(x)
+        (gm, gi), (wm, wi) = (D.dedup_cosine(t, mesh=mesh), D.dedup_cosine(t.to(dev0)))
+        np.testing.assert_allclose(gm.cpu().numpy(), wm.cpu().numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(gi.cpu().numpy(), wi.cpu().numpy())
+        (gl, gc, _), (wl, wc, _) = (kmeans_fit(x, 3, mesh=mesh), kmeans_fit(x, 3, device=dev0))
+        np.testing.assert_array_equal(gl, wl)
+        np.testing.assert_allclose(gc, wc, rtol=1e-5, atol=1e-5)
+        gs, ws = (CSC.silhouette_score(x, wl, 3, mesh=mesh),
+                  CSC.silhouette_score(x, wl, 3, device=dev0))
+        np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-6)
+        ms = {}
+        for tag, kw in (("sharded", {"mesh": mesh}), ("single", {"device": dev0})):
+            ms[tag] = (ms_per_call(lambda: D.dedup_cosine(t, **kw) if "mesh" in kw
+                                   else D.dedup_cosine(t.to(dev0))),
+                       ms_per_call(lambda: kmeans_fit(x, 3, **kw)),
+                       ms_per_call(lambda: CSC.silhouette_score(x, wl, 3, **kw)))
+    log("   ops on %d x %d ('highest'): dedup max|mins diff| %.3g, argmins equal; K-means "
+        "k=3 labels equal, max|centre diff| %.3g; silhouette %.6f vs %.6f"
+        % (x.shape[0], x.shape[1], float((gm.cpu() - wm.cpu()).abs().max()),
+           float(np.abs(gc - wc).max()), gs, ws))
+    for k, op in enumerate(("dedup_cosine", "kmeans_fit k=3", "silhouette_score")):
+        log("   %s ms: sharded min %.2f / mean %.2f, single device min %.2f / mean %.2f"
+            % (op, *ms["sharded"][k], *ms["single"][k]))
+
+
+def other_device_calls(frames):
+    """4v: on cuda:1 while the calling thread's current device is cuda:0,
+    every kernel against its plain version on cuda:1 (K1-K3 through
+    ``full_forward``'s f32 cascade and the plain engines, K4 and K5
+    directly) and ``MtcnnDetector(device="cuda:1", bf16=True)`` against the
+    same detector on cuda:0."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.models import mtcnn as M
+    from videotofaces_tpu_torch.models.wrappers import MtcnnDetector
+    from videotofaces_tpu_torch.ops import resize_kernel as RK
+    from videotofaces_tpu_torch.ops import roi_align as RA
+
+    d1 = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        assert torch.cuda.current_device() == 0
+        f1 = torch.from_numpy(np.stack(frames)).to(d1)
+        model = M.MTCNN.from_jax(seeded_params(0, 2.0)).to(d1).eval()
+        with config.precision_scope("highest"), torch.no_grad():
+            n0 = read_launches()
+            got = M.full_forward(model, f1, minsize=MINSIZE)
+            with plain_engines():
+                want = M.full_forward(model, f1, minsize=MINSIZE)
+        torch.cuda.synchronize(d1)
+        n1 = read_launches()
+        assert n1["pnet_level"] > n0["pnet_level"] and n1["pool_crops"] > n0["pool_crops"]
+        assert torch.equal(got[3].sum(1), want[3].sum(1)) and got[3].sum() > 0
+        crops = encoder_crops(4, 16)
+        pk, sz = RK.pack_images(crops)
+        pk, sz = torch.from_numpy(pk).to(d1), torch.from_numpy(sz).to(d1)
+        torch.testing.assert_close(RK.resize_normalize(pk, sz, 160, 1 / 128.0, 127.5),
+                                   RK.resize_normalize_plain(pk, sz, 160, 1 / 128.0, 127.5),
+                                   rtol=0, atol=1e-5)
+        rng = np.random.default_rng(3)
+        fmaps = [torch.from_numpy(rng.normal(0, 1, (1, h, w, 256)).astype(np.float32)).to(d1)
+                 for h, w in ((48, 84), (24, 42), (12, 21), (6, 11))]
+        xy = rng.uniform(0, 200, (1, 64, 2))
+        boxes = torch.from_numpy(np.concatenate([xy, xy + rng.uniform(4, 300, (1, 64, 2))],
+                                                -1).astype(np.float32)).to(d1)
+        valid = torch.ones((1, 64), dtype=torch.bool, device=d1)
+        amax = max(float(f.abs().max()) for f in fmaps)
+        torch.testing.assert_close(RA.roi_align_fpn(fmaps, boxes, valid)[0],
+                                   RA.roi_align_fpn_plain(fmaps, boxes, valid),
+                                   rtol=1e-5, atol=1e-5 * amax)
+        dets = [MtcnnDetector(device=d, params=seeded_params(0, 2.0), bf16=True)
+                for d in ("cuda:1", "cuda:0")]
+        got, want = (det(list(frames)) for det in dets)
+        assert_same_boxes([d[:, :4] for d in got], [d[:, :4] for d in want], "mtcnn cuda:1")
+        assert torch.cuda.current_device() == 0
+    log("   every kernel launched on cuda:1 from a thread whose current device is "
+        "cuda:0 equals its plain version there; MtcnnDetector(device='cuda:1') equals "
+        "the detector on cuda:0 (%s detections)" % [len(d) for d in got])
+
+
 def main():
     import torch
 
@@ -2379,6 +2613,26 @@ def main():
 
     with phase("4t. training: ViTClassifier B16 at 128 px, batch 64, remat False and True"):
         train_vit(dev)
+
+    with phase("4u. mesh of two shards on cuda:0: MTCNN and R-CNN (bf16) on the 4a batch, "
+               "FaceNet device_resize on 128 crops, dedup / K-means / silhouette on "
+               "4,096 x 512, each sharded vs one device"):
+        from videotofaces_tpu_torch.pipeline.mesh_auto import default_mesh, resolve_mesh
+
+        log("   torch.cuda.device_count() %d, default_mesh() %r, mesh=\"auto\" %r"
+            % (torch.cuda.device_count(), default_mesh(), resolve_mesh("auto")))
+        assert resolve_mesh("auto") is None   # phases 4a-4t ran on one device
+        sharded_vs_single([dev, dev], frames_np, encoder_crops(4, 128), unit_blobs(6, 4096))
+
+    with phase("4v. two cards: the same on a cuda:0 + cuda:1 mesh, and every kernel on "
+               "cuda:1 called from a thread whose current device is cuda:0"):
+        if torch.cuda.device_count() < 2:
+            log("   skipped: this host has %d CUDA device(s); 4v needs two"
+                % torch.cuda.device_count())
+        else:
+            sharded_vs_single(["cuda:0", "cuda:1"], frames_np, encoder_crops(4, 128),
+                              unit_blobs(6, 4096))
+            other_device_calls(frames_np)
 
     if failures:
         print("chip_smoke: %d phase(s) failed:\n  %s" % (len(failures),

@@ -590,3 +590,38 @@ def test_classifier_step_card_matches_cpu():
             torch.device("cuda"), lambda: TR.ViTClassifier.seeded(5, seed=1, remat=remat, **small),
             lambda m: TR.create_train_state(m, 1e-3), TR.train_step, batch, 1e-3,
             zero=("attn.k.bias",))
+
+
+def _need_cards(n):
+    _need_cuda()
+    if torch.cuda.device_count() < n:
+        pytest.skip("needs %d CUDA devices, this host has %d" % (n, torch.cuda.device_count()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("devices", [("cuda:0", "cuda:0"), ("cuda:0", "cuda:1")],
+                         ids=["two_shards_one_card", "two_cards"])
+def test_sharded_wrappers_and_ops_equal_one_device(devices):
+    """``chip_smoke.sharded_vs_single`` (phases 4u and 4v) at a small size:
+    MTCNN and Faster R-CNN in bf16 on 2 frames of 360 x 640, FaceNet
+    through K5 on 16 crops, dedup / K-means / silhouette on 512 x 512, each
+    sharded over ``devices`` against ``mesh=None``: detections matched at
+    IoU >= 0.99 with equal counts, embeddings within 1e-4, the ops at
+    tests/test_parallel.py's tolerances, and every kernel launched once per
+    shard for each launch of the single-device call."""
+    _need_cards(len(set(devices)))
+    import chip_smoke as CS
+
+    CS.sharded_vs_single(list(devices), CS.seeded_frames(7, b=2, h=360, w=640),
+                         CS.encoder_crops(4, 16), CS.unit_blobs(6, 512))
+
+
+@pytest.mark.cuda
+def test_kernels_follow_the_tensors_device():
+    """Every kernel on cuda:1 called while the thread's current device is
+    cuda:0 equals its plain version, and a detector on cuda:1 equals the
+    same detector on cuda:0 (``chip_smoke.other_device_calls``)."""
+    _need_cards(2)
+    import chip_smoke as CS
+
+    CS.other_device_calls(CS.seeded_frames(7, b=2, h=360, w=640))

@@ -85,6 +85,32 @@ def test_port_imports_with_jax_blocked():
     assert r.stdout.startswith("OK") and int(r.stdout.split()[1]) >= 20
 
 
+_BLOCKED_PARALLEL = _BLOCKED_IMPORT.split("import videotofaces_tpu_torch\n")[0] + r"""
+import pkgutil
+import videotofaces_tpu_torch.parallel as P
+from videotofaces_tpu_torch.parallel import default_mesh, make_mesh
+from videotofaces_tpu_torch.pipeline.mesh_auto import default_mesh as auto_default_mesh
+names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + ".")]
+assert names == ["videotofaces_tpu_torch.parallel.mesh"], names
+assert default_mesh is auto_default_mesh and default_mesh() is None
+assert make_mesh(devices=["cpu"] * 2).shape["data"] == 2
+leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("OK")
+"""
+
+
+def test_parallel_package_imports_with_jax_blocked():
+    """The multi-device modules (``parallel/``, ``pipeline/mesh_auto.py``),
+    which stand in for the JAX package's ``parallel/``, import no JAX and
+    nothing of the JAX package; ``make_mesh`` and ``default_mesh`` are
+    exported from ``parallel``."""
+    r = subprocess.run([sys.executable, "-c", _BLOCKED_PARALLEL], cwd=str(ROOT),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "OK"
+
+
 def test_device_none_means_cuda(monkeypatch):
     from videotofaces_tpu_torch import config
     from videotofaces_tpu_torch.models.wrappers import MtcnnDetector

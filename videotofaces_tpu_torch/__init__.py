@@ -1,7 +1,8 @@
 """videotofaces_tpu_torch — the PyTorch/CUDA port of videotofaces_tpu.
 
 Same public contract as the JAX package (``video_to_faces`` and the CLI),
-running on one NVIDIA GPU; the hot kernels are hand-written CUDA C++ for
+running on one NVIDIA GPU, or data-parallel over the GPUs of a
+``parallel`` mesh; the hot kernels are hand-written CUDA C++ for
 Hopper (``csrc/``). The port grows slice by slice (ROADMAP.md): it runs the
 anime path (Faster R-CNN + ViT, the API's defaults) and the live-action path
 (YOLOv3, its default, or the MTCNN detector, with FaceNet) end to end —

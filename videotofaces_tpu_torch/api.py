@@ -11,8 +11,14 @@ on the CPU.
 
 The port runs the YOLOv3, Faster R-CNN and MTCNN detectors and the ViT and
 FaceNet encoders, so both styles run with their defaults (``style="anime"``:
-Faster R-CNN + ViT-B16; ``style="live"``: YOLOv3 + FaceNet-VGG). The JAX
-package's multi-host sharding is not ported.
+Faster R-CNN + ViT-B16; ``style="live"``: YOLOv3 + FaceNet-VGG).
+
+Where the JAX package shards over every device of the host by default
+(``mesh="auto"``; V2F_SINGLE_DEVICE=1 opts out), this entry point runs on
+one card: the port's ``mesh="auto"`` keeps one device until a sharded call
+beats one card (pipeline/mesh_auto.py). The model factories,
+``FaceService`` and the grouping ops shard over a ``parallel.Mesh`` passed
+to them. The JAX package's multi-host jobs are not ported.
 """
 
 import os.path as osp

@@ -92,14 +92,20 @@ def model_call():
 
 def resolve_device(device=None):
     """``None`` means the card. Without a CUDA device that raises: nothing
-    quietly carries on on the CPU — pass ``device="cpu"`` to ask for it."""
+    quietly carries on on the CPU — pass ``device="cpu"`` to ask for it.
+    A CUDA device without an index gets the calling thread's current one,
+    so that every later launch, copy and event names the same card
+    whichever thread makes it."""
     if device is None:
         device = "cuda"
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device=\"cpu\" (CLI: -d cpu) "
-            "to run on the CPU")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device=\"cpu\" (CLI: -d cpu) "
+                "to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 

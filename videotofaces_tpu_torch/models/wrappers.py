@@ -12,14 +12,25 @@ runs, only the predictions are untrained.
 Every model call (``submit`` of a detector, ``__call__`` of an encoder)
 runs inside ``config.model_call()``: under the TF32 flags of the calling
 thread's precision, whatever scope another thread holds.
+
+``mesh=`` (parallel/mesh.py) shards every wrapper data-parallel, as the JAX
+package's ``mesh=`` does: the batch is rounded up to a multiple of the
+mesh's size (``_round_batch``; the padding repeats the last frame and is
+dropped), cut into one equal block per shard, and each block runs on its
+device (``map_shards``, one shard after another), with one copy of the
+module per distinct device of the mesh. The results are joined in shard
+order, so a sharded call returns what the single-device call returns: every
+capacity buffer of the detectors is per image.
 """
 
+import copy
 import os.path as osp
 
 import numpy as np
 import torch
 
 from .. import config
+from ..parallel.mesh import gather_rows, map_shards, pad_to_multiple, split_rows
 from ..utils import weights as W
 
 
@@ -43,6 +54,107 @@ def _to_pinned(t):
     return host
 
 
+def _round_batch(bs, mesh):
+    """The batch size rounded up to a multiple of the mesh's shards."""
+    return bs if mesh is None else pad_to_multiple(bs, mesh.shape["data"])
+
+
+def _to_device(arr, device):
+    """A host array on ``device``: on the card from a pinned buffer, by a
+    non-blocking copy on the current stream."""
+    x = torch.from_numpy(arr)
+    if device.type == "cuda":
+        x = x.pin_memory().to(device, non_blocking=True)
+    return x
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _tree_join(trees):
+    """Shards' output trees (tuples and dicts of host tensors with the batch
+    first) joined on the batch axis, in shard order."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_join([t[k] for t in trees]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return tuple(_tree_join(parts) for parts in zip(*trees, strict=True))
+    return torch.cat(trees)
+
+
+class _Shards(list):
+    """The per-shard output trees of a sharded ``submit``."""
+
+
+class _Replicas:
+    """Placement shared by the five wrappers: the devices of the shards
+    (the mesh's, or the one ``device``), one copy of the module on each
+    distinct device (``self.models``; shards on one device share it),
+    ``self.device`` the first device and ``self.model`` its module."""
+
+    def _place(self, model, device, mesh):
+        if mesh is not None and device is not None:
+            raise ValueError("pass device= or mesh=, not both (got %r and %r)"
+                             % (device, mesh))
+        self.mesh = mesh
+        self.devices = (tuple(mesh.devices) if mesh is not None
+                        else (config.resolve_device(device),))
+        self.device = self.devices[0]
+        distinct = mesh.distinct if mesh is not None else self.devices
+        # copies first, while ``model`` is still on the host
+        self.models = {d: (model if k == len(distinct) - 1 else copy.deepcopy(model))
+                       for k, d in enumerate(distinct)}
+        for d, m in self.models.items():
+            m.to(d).eval()
+        self.model = self.models[self.device]
+
+    def _run(self, fn, *parts):
+        """``fn(device, *blocks)`` on every shard, under one
+        ``config.model_call()`` taken here and inference mode."""
+        with config.model_call(), torch.inference_mode():
+            return map_shards(self.mesh, fn, *parts, device=self.device)
+
+    def _submit_shards(self, arr, forward):
+        """Start a batch (``arr``, the padded uint8 batch): each shard's
+        block goes to its device from a pinned host buffer, ``forward(model,
+        x)`` runs on that device's current stream, and its outputs start
+        their copy back into pinned buffers, with one event recorded after
+        them. Returns the handle ``collect`` takes."""
+
+        def shard(dev, block):
+            x = _to_device(block, dev)
+            out = forward(self.models[dev], x)
+            if dev.type != "cuda":
+                return out, None
+            host = _tree_map(_to_pinned, out)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+            return host, done
+
+        shards = self._run(shard, split_rows(arr, self.mesh))
+        if len(shards) == 1:
+            return shards[0]
+        return _Shards(out for out, _ in shards), [done for _, done in shards]
+
+
+def _landed(out, done):
+    """A submitted batch's outputs once their copies have landed: one
+    shard's tree as it is, the trees of several joined in shard order."""
+    if isinstance(out, _Shards):
+        for d in done:
+            if d is not None:
+                d.synchronize()
+        return _tree_join(out)
+    if done is not None:
+        done.synchronize()
+    return out
+
+
 def pad_batch(frames, batch_size):
     """Stack a list of same-shape frames, padding to ``batch_size`` by repeating
     the last frame (results for the padding are dropped)."""
@@ -53,23 +165,24 @@ def pad_batch(frames, batch_size):
     return arr, n
 
 
-class MtcnnDetector:
+class MtcnnDetector(_Replicas):
     """Live-action face detector; reference API parity with RealMTCNN
     (mtcnn.py:312-326): __call__(list of BGR frames) -> list of [n, 5] numpy
     arrays (x1, y1, x2, y2, score), optionally with landmarks.
 
     ``device``: None means the CUDA card and raises when there is none;
     pass ``"cpu"`` to run the plain versions of the kernels on the CPU.
-    ``params``: the JAX package's MTCNN parameter tree (numpy arrays), used
-    instead of a checkpoint. ``bf16``: store the nets in bfloat16 and run
-    the cascade in bfloat16, as the JAX detector's flag does."""
+    ``mesh``: shard every batch over a ``parallel.mesh.Mesh`` instead (see
+    the module docstring). ``params``: the JAX package's MTCNN parameter
+    tree (numpy arrays), used instead of a checkpoint. ``bf16``: store the
+    nets in bfloat16 and run the cascade in bfloat16, as the JAX detector's
+    flag does."""
 
     def __init__(self, device=None, min_face_size=5, checkpoint="mtcnn_joined",
-                 batch_size=None, caps=None, params=None, bf16=False):
+                 batch_size=None, caps=None, params=None, mesh=None, bf16=False):
         from . import mtcnn as M
 
         print("Initializing MTCNN model for live-action face detection")
-        self.device = config.resolve_device(device)
         self.M = M
         self.compute_dtype = torch.bfloat16 if bf16 else None
         self.minsize = min_face_size
@@ -80,7 +193,7 @@ class MtcnnDetector:
         model = M.MTCNN.seeded(0) if params is None else M.MTCNN.from_jax(params)
         if bf16:
             model = model.to(torch.bfloat16)
-        self.model = model.to(self.device).eval()
+        self._place(model, device, mesh)
 
     def submit(self, frames):
         """Start a batch: frames go to the card from a pinned host buffer
@@ -88,29 +201,15 @@ class MtcnnDetector:
         results start their copy back into pinned buffers; ``collect`` waits
         for them. The cascade's NMS loops sync with the host, so submit
         returns once the device work is queued past the last of them."""
-        bs = self.batch_size or len(frames)
+        bs = _round_batch(self.batch_size or len(frames), self.mesh)
         arr, n = pad_batch(list(frames), bs)
-        x = torch.from_numpy(arr)
-        cuda = self.device.type == "cuda"
-        if cuda:
-            x = x.pin_memory().to(self.device, non_blocking=True)
-        with config.model_call(), torch.inference_mode():
-            out = self.M.full_forward(self.model, x, minsize=self.minsize,
-                                      caps=self.caps,
-                                      compute_dtype=self.compute_dtype)
-        if not cuda:
-            return (out, None), n
-        boxes, scores, lmk, valid, counts = out
-        host = (_to_pinned(boxes), _to_pinned(scores), _to_pinned(lmk), _to_pinned(valid),
-                {k: _to_pinned(v) for k, v in counts.items()})
-        done = torch.cuda.Event()
-        done.record()
-        return (host, done), n
+        return self._submit_shards(arr, lambda model, x: self.M.full_forward(
+            model, x, minsize=self.minsize, caps=self.caps,
+            compute_dtype=self.compute_dtype)), n
 
     def collect(self, handle, return_landmarks=False):
-        (out, done), n = handle
-        if done is not None:
-            done.synchronize()
+        out, n = handle
+        out = _landed(*out)
         boxes, scores, lmk, valid = (t.numpy() for t in out[:4])
         counts = {k: v.numpy() for k, v in out[4].items()}
         # warn whenever survivors exceed the NEXT fixed-capacity buffer;
@@ -142,21 +241,21 @@ class MtcnnDetector:
         return self.collect(self.submit(frames), return_landmarks)
 
 
-class _BoxDetectorBase:
+class _BoxDetectorBase(_Replicas):
     """Shared submit / collect for detectors whose forward returns (boxes,
     scores, classes, valid, *counters): YOLO's one counter
     (select_overflow) or Faster R-CNN's three (select_overflow,
     roi_dropped, roi_truncated) (models/wrappers.py:86-153 of the JAX
     package). Subclasses provide ``_name``, ``_counter_warnings`` (one
     "%s ... %d" text per counter, filled with the name and the batch max),
-    ``_resized_hw(h, w)`` and ``_forward(x_u8, h, w)``."""
+    ``_resized_hw(h, w)`` and ``_forward(model, x_u8, h, w)``."""
 
     _counter_warnings = ()
 
     def _resized_hw(self, h, w):
         raise NotImplementedError
 
-    def _forward(self, x, h, w):
+    def _forward(self, model, x, h, w):
         raise NotImplementedError
 
     def submit(self, frames):
@@ -172,27 +271,14 @@ class _BoxDetectorBase:
             nh, nw = self._resized_hw(h, w)
             frames = [cv2.resize(f, (nw, nh), interpolation=cv2.INTER_LINEAR)
                       for f in frames]
-        arr, n = pad_batch(frames, self.batch_size or len(frames))
-        x = torch.from_numpy(arr)
-        cuda = self.device.type == "cuda"
-        if cuda:
-            x = x.pin_memory().to(self.device, non_blocking=True)
-        with config.model_call(), torch.inference_mode():
-            out = self._forward(x, h, w)
-        if not cuda:
-            return (out, None), n
-        host = tuple(_to_pinned(t) for t in out)
-        done = torch.cuda.Event()
-        done.record()
-        return (host, done), n
+        arr, n = pad_batch(frames, _round_batch(self.batch_size or len(frames), self.mesh))
+        return self._submit_shards(arr, lambda model, x: self._forward(model, x, h, w)), n
 
     def collect(self, handle):
         """Wait for a batch; returns per-image (boxes [n, 4], scores [n],
         classes [n]) numpy lists, and warns when a capacity counter is set."""
-        (out, done), n = handle
-        if done is not None:
-            done.synchronize()
-        boxes, scores, classes, valid, *counters = (t.numpy() for t in out)
+        out, n = handle
+        boxes, scores, classes, valid, *counters = (t.numpy() for t in _landed(*out))
         for counter, text in zip(counters, self._counter_warnings, strict=True):
             worst = int(counter.max())
             if worst > 0:
@@ -215,7 +301,8 @@ class YoloDetector(_BoxDetectorBase):
     classes) as per-image numpy lists.
 
     ``device``: None means the CUDA card and raises when there is none;
-    ``"cpu"`` runs on the CPU. ``params``: the JAX package's {"backbone",
+    ``"cpu"`` runs on the CPU; ``mesh`` shards every batch instead (see the
+    module docstring). ``params``: the JAX package's {"backbone",
     "neck", "head"} tree (numpy arrays), used instead of a checkpoint.
     ``max_side``: the keep-ratio resize's longer side (608). ``host_resize``:
     resize with cv2 on the host (bit parity with the reference).
@@ -229,12 +316,12 @@ class YoloDetector(_BoxDetectorBase):
                          "image (batch max).",)
 
     def __init__(self, device=None, checkpoint="yolov3_wider", max_side=608,
-                 batch_size=None, params=None, host_resize=False, bf16=False, s2d=None):
+                 batch_size=None, params=None, mesh=None, host_resize=False, bf16=False,
+                 s2d=None):
         from . import yolo as Y
 
         print("Initializing YOLOv3 model for live-action face detection")
         del s2d
-        self.device = config.resolve_device(device)
         self.Y = Y
         self.max_side = max_side
         self.host_resize = host_resize
@@ -245,26 +332,29 @@ class YoloDetector(_BoxDetectorBase):
         model = Y.YOLOv3.seeded(0) if params is None else Y.YOLOv3.from_jax(params)
         if bf16:
             model = model.to(torch.bfloat16)
-        self.model = model.to(self.device).eval()
+        self._place(model, device, mesh)
         self._geom = {}
 
     def _resized_hw(self, h, w):
         return self.Y.resized_shape(h, w, self.max_side)
 
-    def _geometry(self, h, w):
-        """(resized size, canvas, priors [D, 4], strides [D, 1] on the
-        device) of an h x w frame, computed once per frame size."""
+    def _geometry(self, h, w, device=None):
+        """(resized size, canvas, priors [D, 4], strides [D, 1] on ``device``,
+        default ``self.device``) of an h x w frame, computed once per frame
+        size for every device of the wrapper."""
         if (h, w) not in self._geom:
             nh, nw = self._resized_hw(h, w)
             canvas = self.Y.canvas_shape(nh, nw)
             priors, strides = self.Y.flat_priors_and_strides(canvas)
-            self._geom[(h, w)] = ((nh, nw), canvas, torch.from_numpy(priors).to(self.device),
-                                  torch.from_numpy(strides).to(self.device))
-        return self._geom[(h, w)]
+            self._geom[(h, w)] = ((nh, nw), canvas, {
+                d: (torch.from_numpy(priors).to(d), torch.from_numpy(strides).to(d))
+                for d in self.models})
+        resized, canvas, on = self._geom[(h, w)]
+        return (resized, canvas) + on[device or self.device]
 
-    def _forward(self, x, h, w):
-        resized, canvas, priors, strides = self._geometry(h, w)
-        return self.Y.full_forward(self.model, x, resized, canvas, priors, strides,
+    def _forward(self, model, x, h, w):
+        resized, canvas, priors, strides = self._geometry(h, w, x.device)
+        return self.Y.full_forward(model, x, resized, canvas, priors, strides,
                                    orig_hw=(h, w) if self.host_resize else None,
                                    compute_dtype=self.compute_dtype)
 
@@ -275,7 +365,8 @@ class FrcnnDetector(_BoxDetectorBase):
     classes) as per-image numpy lists.
 
     ``device``: None means the CUDA card and raises when there is none;
-    ``"cpu"`` runs the plain RoIAlign on the CPU. ``params``: the JAX
+    ``"cpu"`` runs the plain RoIAlign on the CPU; ``mesh`` shards every
+    batch instead (see the module docstring). ``params``: the JAX
     package's {"body", "head"} tree (numpy arrays), used instead of a
     checkpoint. ``bf16``: parameters and the network in bfloat16 with the
     uint8-canvas preprocess, as the JAX detector's flag. ``roi_method`` is
@@ -292,14 +383,13 @@ class FrcnnDetector(_BoxDetectorBase):
         "sampling window.")
 
     def __init__(self, device=None, checkpoint="frcnn_anime", batch_size=None,
-                 params=None, resize_spec=(800, 1333), proposal_cap=1000, out_top=100,
-                 host_resize=False, bf16=False, roi_method=None):
+                 params=None, mesh=None, resize_spec=(800, 1333), proposal_cap=1000,
+                 out_top=100, host_resize=False, bf16=False, roi_method=None):
         from . import rcnn as R
 
         print("Initializing FasterRCNN model for anime face detection")
         if roi_method not in _ROI_METHODS:
             raise ValueError("unknown roi_method %r (valid: %s)" % (roi_method, _ROI_METHODS))
-        self.device = config.resolve_device(device)
         self.R = R
         self.resize_spec = resize_spec
         self.host_resize = host_resize
@@ -313,28 +403,30 @@ class FrcnnDetector(_BoxDetectorBase):
         model = R.AnimeFRCNN.seeded(0) if params is None else R.AnimeFRCNN.from_jax(params)
         if bf16:
             model = model.to(torch.bfloat16)
-        self.model = model.to(self.device).eval()
+        self._place(model, device, mesh)
         self._priors = {}
 
     def _resized_hw(self, h, w):
         return self.R.resized_shape(h, w, *self.resize_spec)
 
-    def _geometry(self, h, w):
-        """(resized size, canvas, per-level priors on the device) of an
-        h x w frame, computed once per frame size."""
+    def _geometry(self, h, w, device=None):
+        """(resized size, canvas, per-level priors on ``device``, default
+        ``self.device``) of an h x w frame, computed once per frame size
+        for every device of the wrapper."""
         if (h, w) not in self._priors:
             from ..ops.anchors import get_priors
 
             nh, nw = self._resized_hw(h, w)
             canvas = self.R.canvas_shape(nh, nw)
-            priors = [torch.from_numpy(p).to(self.device) for p in get_priors(
-                canvas, self.R.frcnn_bases(), loc="corner", concat=False)]
-            self._priors[(h, w)] = ((nh, nw), canvas, priors)
-        return self._priors[(h, w)]
+            host = get_priors(canvas, self.R.frcnn_bases(), loc="corner", concat=False)
+            self._priors[(h, w)] = ((nh, nw), canvas, {
+                d: [torch.from_numpy(p).to(d) for p in host] for d in self.models})
+        resized, canvas, on = self._priors[(h, w)]
+        return resized, canvas, on[device or self.device]
 
-    def _forward(self, x, h, w):
-        resized, canvas, priors = self._geometry(h, w)
-        return self.R.full_forward(self.model, x, resized, canvas, priors,
+    def _forward(self, model, x, h, w):
+        resized, canvas, priors = self._geometry(h, w, x.device)
+        return self.R.full_forward(model, x, resized, canvas, priors,
                                    out_top=self.out_top, proposal_cap=self.proposal_cap,
                                    orig_hw=(h, w) if self.host_resize else None,
                                    compute_dtype=self.compute_dtype)
@@ -344,7 +436,7 @@ class FrcnnDetector(_BoxDetectorBase):
 _ROI_METHODS = (None, "dense", "sorted", "slice", "gather", "pallas", "pallas-interpret")
 
 
-class _Encoder:
+class _Encoder(_Replicas):
     """Shared encoder wrapper: resize to the model's square input (the
     cv2.blobFromImages step), normalize, forward, padded batches.
     ``__call__(list of BGR crops)`` -> [n, D] float32 numpy embeddings.
@@ -356,12 +448,13 @@ class _Encoder:
     crops on the host (``pack_images``, ``pack_size`` square slots) and
     resizes them on the card with the K5 kernel (ops/resize_kernel.py);
     numerics differ from cv2's fixed-point INTER_LINEAR by < 1 LSB.
-    ``device``: None means the CUDA card and raises when there is none."""
+    ``device``: None means the CUDA card and raises when there is none;
+    ``mesh`` shards every batch instead (see the module docstring)."""
 
     def __init__(self, model, input_size, preprocess, norm_scale, norm_mean,
-                 device=None, batch_size=None, device_resize=False, pack_size=256):
-        self.device = config.resolve_device(device)
-        self.model = model.to(self.device).eval()
+                 device=None, batch_size=None, mesh=None, device_resize=False,
+                 pack_size=256):
+        self._place(model, device, mesh)
         self.input_size = input_size
         self.preprocess = preprocess
         self.norm_scale, self.norm_mean = norm_scale, norm_mean
@@ -369,13 +462,8 @@ class _Encoder:
         self.device_resize = device_resize
         self.pack_size = pack_size
 
-    def _to_device(self, arr):
-        x = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            x = x.pin_memory().to(self.device, non_blocking=True)
-        return x
-
-    def _packed_input(self, images, bs):
+    def _packed_blocks(self, images, bs):
+        """The packed crops and their sizes, padded to ``bs`` rows."""
         from ..ops import resize_kernel as RK
 
         packed, sizes = RK.pack_images(images, self.pack_size)
@@ -383,29 +471,43 @@ class _Encoder:
         if n < bs:
             packed = np.concatenate([packed, np.repeat(packed[-1:], bs - n, axis=0)])
             sizes = np.concatenate([sizes, np.repeat(sizes[-1:], bs - n, axis=0)])
-        return RK.resize_normalize(self._to_device(packed), self._to_device(sizes),
+        return packed, sizes
+
+    def _packed_input(self, dev, packed, sizes):
+        from ..ops import resize_kernel as RK
+
+        return RK.resize_normalize(_to_device(packed, dev), _to_device(sizes, dev),
                                    self.input_size, self.norm_scale, self.norm_mean,
                                    swap_rb=True)
 
-    def _host_input(self, images, bs):
+    def _host_blocks(self, images, bs):
+        """The cv2-resized crops, padded to ``bs`` rows."""
         import cv2
 
         s = self.input_size
         blobs = [cv2.resize(img, (s, s), interpolation=cv2.INTER_LINEAR)
                  for img in images]
-        arr, _ = pad_batch(blobs, bs)
-        u8 = self._to_device(arr)
+        return (pad_batch(blobs, bs)[0],)
+
+    def _host_input(self, dev, arr):
+        u8 = _to_device(arr, dev)
         # BGR -> RGB, affine normalize, NHWC -> NCHW
         return self.preprocess(u8.flip(-1)).permute(0, 3, 1, 2).contiguous()
 
     def __call__(self, images):
         images = list(images)
         n = len(images)
-        bs = self.batch_size or n
-        with config.model_call(), torch.inference_mode():
-            x = (self._packed_input if self.device_resize else self._host_input)(images, bs)
-            out = self.model(x)
-        return out[:n].cpu().numpy()
+        bs = _round_batch(self.batch_size or n, self.mesh)
+        if self.device_resize:
+            blocks, make_input = self._packed_blocks(images, bs), self._packed_input
+        else:
+            blocks, make_input = self._host_blocks(images, bs), self._host_input
+
+        def shard(dev, *parts):
+            return self.models[dev](make_input(dev, *parts))
+
+        out = self._run(shard, *(split_rows(b, self.mesh) for b in blocks))
+        return gather_rows(out)[:n].cpu().numpy()
 
 
 class FaceNetEncoder(_Encoder):

@@ -116,3 +116,14 @@ def stream_ptr(device):
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(fn):
+    """Add one to ``fn.launches``, the launch count of a kernel wrapper.
+    Several threads may launch at once (a service's callers, a pipeline's
+    stages), and ``+= 1`` on an attribute is a read, an add and a write."""
+    with _count_lock:
+        fn.launches += 1

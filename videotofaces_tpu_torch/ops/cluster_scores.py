@@ -1,5 +1,5 @@
 """Clustering quality scores as device reductions + rand index on the host
-(counterpart of videotofaces_tpu/ops/cluster_scores.py, single device).
+(counterpart of videotofaces_tpu/ops/cluster_scores.py).
 
 Replaces sklearn.metrics.{silhouette_score, calinski_harabasz_score,
 davies_bouldin_score, rand_score} used for K selection and the grouping eval
@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import config
+from ..parallel.mesh import map_shards, row_ranges
 
 _SIL_ROWS = 4096   # rows of the [rows, N] float64 silhouette distance block at a time
 
@@ -72,15 +73,26 @@ def _inputs(x, labels, n_clusters, device, dtype=torch.float32):
     return xd, torch.from_numpy(labels.astype(np.int64)).to(device), k
 
 
-def silhouette_score(x, labels, n_clusters=None, device=None):
+def silhouette_score(x, labels, n_clusters=None, device=None, mesh=None):
     """Mean silhouette coefficient, euclidean metric. Samples in singleton
-    clusters score 0 (sklearn convention)."""
-    xd, lab, k = _inputs(x, labels, n_clusters, device)
+    clusters score 0 (sklearn convention). With ``mesh`` (parallel/mesh.py)
+    the [rows, N] distance blocks shard on rows: each shard's device sums
+    the silhouettes of one contiguous block of rows."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass device= or mesh=, not both")
+    xd, lab, k = _inputs(x, labels, n_clusters,
+                         mesh.devices[0] if mesh is not None else device)
     onehot, counts = _onehot_stats(lab, k)
-    total = sum(float(_silhouette_sum(xd[i:i + _SIL_ROWS], lab[i:i + _SIL_ROWS],
-                                      xd, onehot, counts, i))
-                for i in range(0, xd.shape[0], _SIL_ROWS))
-    return total / xd.shape[0]
+    n = xd.shape[0]
+
+    def shard(dev, rows):
+        r0, r1 = rows
+        xs, ls, oh, cs = (t.to(dev) for t in (xd, lab, onehot, counts))
+        return sum(float(_silhouette_sum(xs[i:min(i + _SIL_ROWS, r1)],
+                                         ls[i:min(i + _SIL_ROWS, r1)], xs, oh, cs, i))
+                   for i in range(r0, r1, _SIL_ROWS))
+
+    return sum(map_shards(mesh, shard, row_ranges(n, mesh), device=xd.device)) / n
 
 
 def _centers(xd, onehot, counts):

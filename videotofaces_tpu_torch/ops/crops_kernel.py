@@ -77,11 +77,12 @@ def pool_crops(frames_u8, slots, out_size):
                       device=frames_u8.device)
     if n == 0:           # nothing to launch, nothing to count
         return out
-    rc = lib.pool_crops_launch(frames_u8.data_ptr(), b, h, w, slots.data_ptr(),
-                               n, out_size, out.data_ptr(),
-                               _cuda.stream_ptr(frames_u8.device))
+    with torch.cuda.device(frames_u8.device):   # the C entry point runs on the current device
+        rc = lib.pool_crops_launch(frames_u8.data_ptr(), b, h, w, slots.data_ptr(),
+                                   n, out_size, out.data_ptr(),
+                                   _cuda.stream_ptr(frames_u8.device))
     _cuda.check(rc, "pool_crops")
-    pool_crops.launches += 1
+    _cuda.count_launch(pool_crops)
     return out
 
 

@@ -1,5 +1,5 @@
 """Pairwise-distance Gram matrices on the device (counterpart of
-videotofaces_tpu/ops/distances.py, single device).
+videotofaces_tpu/ops/distances.py).
 
 Replaces sklearn.metrics.pairwise_distances / cosine_distances used by the
 dedup and classification stages (dupes.py:56-60, grouping.py:51). Hamming
@@ -9,6 +9,8 @@ matmuls, which follow the precision policy of ``config`` (TF32 off in
 """
 
 import torch
+
+from ..parallel.mesh import gather_rows, map_shards, row_ranges
 
 
 def hamming_gram(x, y=None):
@@ -35,13 +37,15 @@ def cosine_gram(x, y=None):
     return 1.0 - xn @ yn.T
 
 
-def nearest_earlier(dist, big=10000.0):
+def nearest_earlier(dist, big=10000.0, row0=0):
     """For each row i: (min, argmin) of dist[i, :i] — the distance to the
     nearest EARLIER element, with row 0 getting >= ``big``. ``argmin``
-    returns the first minimum, as ``jnp.argmin`` does (dupes.py:62-64)."""
-    n = dist.shape[0]
-    idx = torch.arange(n, device=dist.device)
-    later = (idx[None, :] >= idx[:, None]).to(dist.dtype)
+    returns the first minimum, as ``jnp.argmin`` does (dupes.py:62-64).
+    ``dist`` may be a block of rows [rows, N] of the full [N, N] matrix,
+    starting at row ``row0``."""
+    rows = torch.arange(row0, row0 + dist.shape[0], device=dist.device)
+    cols = torch.arange(dist.shape[1], device=dist.device)
+    later = (cols[None, :] >= rows[:, None]).to(dist.dtype)
     masked = dist + later * big
     return masked.min(dim=1).values, torch.argmin(masked, dim=1)
 
@@ -53,6 +57,20 @@ def dedup_hash(hashes_u8):
     return mins.to(torch.int32), inds.to(torch.int32)
 
 
-def dedup_cosine(feats):
-    """All-pairs embedding dedup reductions: feats [N, D] -> (mins, argmins)."""
-    return nearest_earlier(cosine_gram(feats))
+def dedup_cosine(feats, mesh=None):
+    """All-pairs embedding dedup reductions: feats [N, D] (a tensor) ->
+    (mins, argmins), on feats' device. With ``mesh`` (parallel/mesh.py) the
+    N^2 Gram shards on rows: each shard's device takes a contiguous block of
+    rows against all of them, and the (min, argmin) pairs come back in row
+    order on the mesh's first device."""
+    if mesh is None:
+        return nearest_earlier(cosine_gram(feats))
+
+    def shard(dev, rows):
+        full = feats.to(dev)
+        return nearest_earlier(cosine_gram(full[rows[0]:rows[1]], full), row0=rows[0])
+
+    parts = map_shards(mesh, shard, row_ranges(feats.shape[0], mesh))
+    dev0 = mesh.devices[0]
+    return (gather_rows([m for m, _ in parts], dev0),
+            gather_rows([i for _, i in parts], dev0))

@@ -1,5 +1,5 @@
 """K-means with sklearn-parity k-means++ initialization (counterpart of
-videotofaces_tpu/ops/kmeans.py, single device).
+videotofaces_tpu/ops/kmeans.py).
 
 Replaces ``sklearn.cluster.KMeans(n_clusters=k, random_state=r, n_init='auto')``
 (reference grouping.py:99-101). Design:
@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import config
+from ..parallel.mesh import map_shards, split_rows
 
 
 def _sq_dists(x, centers):
@@ -74,25 +75,67 @@ def kmeans_plusplus(x, n_clusters, random_state, n_local_trials=None):
     return x[indices].copy(), indices
 
 
-def _lloyd_step(x, centers):
-    """One Lloyd iteration on the device: labels, new centers, cluster
-    sizes, distances-to-closest."""
+def _partial_step(x, centers):
+    """The assignment step over a block of rows, and the block's share of
+    the update: labels, distances-to-closest, cluster sizes and the
+    one-hot sums of the rows."""
     d = _sq_dists(x, centers)
     labels = torch.argmin(d, dim=1)
     closest = d.min(dim=1).values.to(x.dtype)
-    k = centers.shape[0]
-    onehot = F.one_hot(labels, k).to(x.dtype)                    # [N, K]
-    counts = onehot.sum(dim=0)                                   # [K]
-    sums = onehot.T @ x
-    new_centers = sums / torch.clamp(counts, min=1.0)[:, None]
-    # keep the old center where a cluster went empty (relocated on the host)
-    new_centers = torch.where((counts == 0)[:, None], centers, new_centers)
-    return labels, new_centers, counts, closest
+    onehot = F.one_hot(labels, centers.shape[0]).to(x.dtype)     # [N, K]
+    return labels, closest, onehot.sum(dim=0), onehot.T @ x
 
 
-def kmeans_fit(x, n_clusters, random_state=0, max_iter=300, tol=1e-4, device=None):
+class _Rows:
+    """The points on the devices of the Lloyd steps: one block of rows per
+    shard of ``mesh``, or all of them on ``device``."""
+
+    def __init__(self, x, device, mesh):
+        if mesh is not None and device is not None:
+            raise ValueError("pass device= or mesh=, not both")
+        self.mesh = mesh
+        self.devices = mesh.devices if mesh is not None else (config.resolve_device(device),)
+        self.dev0 = self.devices[0]
+        self.blocks = [torch.from_numpy(np.ascontiguousarray(b)).to(d)
+                       for b, d in zip(split_rows(x, mesh), self.devices)]
+
+    def map(self, fn, centers):
+        """``fn(block, centers)`` on every block, each on its device."""
+        return map_shards(self.mesh, lambda dev, xb: fn(xb, centers.to(dev)), self.blocks,
+                          device=self.dev0)
+
+    def step(self, centers):
+        """One Lloyd iteration: labels [N] (on the host), new centers and
+        cluster sizes (reduced on the first device), and each block's
+        distances-to-closest (on its device)."""
+        parts = self.map(_partial_step, centers)
+        counts, sums = parts[0][2], parts[0][3]
+        for p in parts[1:]:
+            counts = counts + p[2].to(self.dev0)
+            sums = sums + p[3].to(self.dev0)
+        new_centers = sums / torch.clamp(counts, min=1.0)[:, None]
+        # keep the old center where a cluster went empty (relocated on the host)
+        new_centers = torch.where((counts == 0)[:, None], centers, new_centers)
+        return _host_rows([p[0] for p in parts]), new_centers, counts, [p[1] for p in parts]
+
+
+def _host_rows(blocks):
+    """Per-block device tensors joined in row order on the host."""
+    return np.concatenate([b.cpu().numpy() for b in blocks])
+
+
+def _assign(x, centers):
+    d = _sq_dists(x, centers)
+    return torch.argmin(d, dim=1), d.min(dim=1).values.sum()
+
+
+def kmeans_fit(x, n_clusters, random_state=0, max_iter=300, tol=1e-4, device=None,
+               mesh=None):
     """Full K-means fit on ``device`` (None: the card). Returns (labels [N],
-    centers [K, D], inertia)."""
+    centers [K, D], inertia). With ``mesh`` (parallel/mesh.py) the Lloyd
+    steps run data-parallel: each shard assigns its block of rows and
+    returns its one-hot sums and counts, which are added on the mesh's
+    first device; the k-means++ seeding stays on the host."""
     x = np.ascontiguousarray(x, dtype=np.float32)
     n = x.shape[0]
     if n_clusters >= n:
@@ -104,24 +147,22 @@ def kmeans_fit(x, n_clusters, random_state=0, max_iter=300, tol=1e-4, device=Non
         centers = np.zeros((n_clusters, x.shape[1]), x.dtype)
         centers[:n] = x
         return labels, centers, 0.0
-    device = config.resolve_device(device)
-    centers = torch.from_numpy(kmeans_plusplus(x, n_clusters, random_state)[0]).to(device)
-    xd = torch.from_numpy(x).to(device)
+    rows = _Rows(x, device, mesh)
+    centers = torch.from_numpy(kmeans_plusplus(x, n_clusters, random_state)[0]).to(rows.dev0)
     tol_abs = tol * float(np.mean(np.var(x, axis=0)))
 
     labels_prev = None
     strict = False
     labels = None
     for _ in range(max_iter):
-        labels_d, new_centers, counts, closest = _lloyd_step(xd, centers)
-        labels = labels_d.cpu().numpy()
+        labels, new_centers, counts, closest = rows.step(centers)
         counts = counts.cpu().numpy()
         if (counts == 0).any():  # sklearn: reseed empties from farthest points
             new_centers = new_centers.cpu().numpy().copy()
-            far = np.argsort(-closest.cpu().numpy())
+            far = np.argsort(-_host_rows(closest))
             for slot, cid in enumerate(np.nonzero(counts == 0)[0]):
                 new_centers[cid] = x[far[slot]]
-            new_centers = torch.from_numpy(new_centers).to(device)
+            new_centers = torch.from_numpy(new_centers).to(rows.dev0)
         shift = float(torch.sum((new_centers - centers) ** 2))
         centers = new_centers
         if labels_prev is not None and np.array_equal(labels, labels_prev):
@@ -132,9 +173,9 @@ def kmeans_fit(x, n_clusters, random_state=0, max_iter=300, tol=1e-4, device=Non
             break
 
     if not strict:  # final e-step against the final centers
-        d = _sq_dists(xd, centers)
-        labels = torch.argmin(d, dim=1).cpu().numpy()
-        inertia = float(d.min(dim=1).values.sum())
+        parts = rows.map(_assign, centers)
+        labels = _host_rows([p[0] for p in parts])
+        inertia = sum(float(p[1]) for p in parts)
     else:
-        inertia = float(_lloyd_step(xd, centers)[3].sum())
+        inertia = sum(float(c.sum()) for c in rows.step(centers)[3])
     return labels, centers.cpu().numpy(), inertia

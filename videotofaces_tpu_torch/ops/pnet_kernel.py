@@ -198,13 +198,14 @@ def pnet_level(frames_u8, level_hw, weights, dtype):
     # (channels-last RGB0 pixels)
     pooled = (None if pool_windows_le2(level_hw, (h, w))
               else torch.empty((b, sh, sw, 4), dtype=dtype, device=dev))
-    rc = lib.pnet_level_launch(
-        frames_u8.data_ptr(), b, h, w, sh, sw,
-        None if pooled is None else pooled.data_ptr(), weights.data_ptr(),
-        reg.data_ptr(), prob.data_ptr(), int(dtype == torch.bfloat16),
-        _cuda.stream_ptr(dev))
+    with torch.cuda.device(dev):   # the C entry point runs on the current device
+        rc = lib.pnet_level_launch(
+            frames_u8.data_ptr(), b, h, w, sh, sw,
+            None if pooled is None else pooled.data_ptr(), weights.data_ptr(),
+            reg.data_ptr(), prob.data_ptr(), int(dtype == torch.bfloat16),
+            _cuda.stream_ptr(dev))
     _cuda.check(rc, "pnet_level")
-    pnet_level.launches += 1
+    _cuda.count_launch(pnet_level)
     return reg, prob
 
 

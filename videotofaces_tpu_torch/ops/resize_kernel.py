@@ -118,12 +118,13 @@ def resize_normalize(packed_u8, sizes, out_size, scale, mean, swap_rb=True):
     if n == 0:           # nothing to launch, nothing to count
         return out
     lib = _lib()
-    rc = lib.resize_normalize_launch(packed_u8.data_ptr(), n, s, sizes.data_ptr(),
-                                     out_size, inv_out(out_size), float(scale), float(mean),
-                                     int(bool(swap_rb)), out.data_ptr(),
-                                     _cuda.stream_ptr(packed_u8.device))
+    with torch.cuda.device(packed_u8.device):   # the C entry point runs on the current device
+        rc = lib.resize_normalize_launch(packed_u8.data_ptr(), n, s, sizes.data_ptr(),
+                                         out_size, inv_out(out_size), float(scale),
+                                         float(mean), int(bool(swap_rb)), out.data_ptr(),
+                                         _cuda.stream_ptr(packed_u8.device))
     _cuda.check(rc, "resize_normalize")
-    resize_normalize.launches += 1
+    _cuda.count_launch(resize_normalize)
     return out
 
 

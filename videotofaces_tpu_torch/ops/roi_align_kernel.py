@@ -47,12 +47,14 @@ def roi_align_cuda(fmaps, boxes, levels, valid, strides):
         return out
     hw = (ctypes.c_int * 8)(*[int(s) for f in fmaps for s in f.shape[1:3]])
     scales = (ctypes.c_float * 4)(*[1.0 / s for s in strides])
-    rc = _lib().roi_align_launch(*[f.data_ptr() for f in fmaps], hw, scales,
-                                 _DTYPES[fmaps[0].dtype], b, r, c, boxes.data_ptr(),
-                                 levels.data_ptr(), valid.data_ptr(), inv_out(OUT_SIZE),
-                                 out.data_ptr(), _cuda.stream_ptr(dev))
+    lib = _lib()
+    with torch.cuda.device(dev):   # the C entry point runs on the current device
+        rc = lib.roi_align_launch(*[f.data_ptr() for f in fmaps], hw, scales,
+                                  _DTYPES[fmaps[0].dtype], b, r, c, boxes.data_ptr(),
+                                  levels.data_ptr(), valid.data_ptr(), inv_out(OUT_SIZE),
+                                  out.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(rc, "roi_align")
-    roi_align_cuda.launches += 1
+    _cuda.count_launch(roi_align_cuda)
     return out
 
 

@@ -1,5 +1,6 @@
 """Detection pipeline: videos -> cropped face images on disk (counterpart of
-videotofaces_tpu/pipeline/detection.py, single process, one card).
+videotofaces_tpu/pipeline/detection.py, single process: one card, or the
+cards of the detector's ``mesh``).
 
 Behavioral contract (reference detection.py:32-162): per file, sample frames
 on the step schedule, batch them through the detector, filter/adjust/square
@@ -29,6 +30,7 @@ from ..utils.pbar import tqdm
 from ..utils.profiling import StageTimer, trace
 from . import boxfilter as BF
 from .dupes import remove_dupes_nearest, remove_dupes_overall
+from . import mesh_auto
 
 
 def resolve_det_model(style, det_model):
@@ -42,14 +44,17 @@ def resolve_det_model(style, det_model):
     return det_model
 
 
-def get_detector_model(style, det_model, device=None, **model_kw):
+def get_detector_model(style, det_model, device=None, mesh="auto", **model_kw):
     """String-dispatch model factory (reference detection.py:22-29): the
-    YOLOv3, Faster R-CNN or MTCNN detector."""
+    YOLOv3, Faster R-CNN or MTCNN detector.
+
+    ``mesh``: a ``parallel.Mesh`` shards inference over its devices;
+    ``"auto"`` and None keep one device (pipeline/mesh_auto.py)."""
     from ..models.wrappers import FrcnnDetector, MtcnnDetector, YoloDetector
 
     factory = {"yolo": YoloDetector, "rcnn": FrcnnDetector,
                "mtcnn": MtcnnDetector}[resolve_det_model(style, det_model)]
-    return factory(device, **model_kw)
+    return factory(device, mesh=mesh_auto.resolve_mesh(mesh), **model_kw)
 
 
 def detect_faces(files, model, sampling, criteria, layout, hash_thr,

@@ -35,6 +35,7 @@ from ..ops.kmeans import kmeans_fit
 from ..utils.image import crop_to_area
 from ..utils.pbar import tqdm
 from ..utils.profiling import StageTimer, trace
+from . import mesh_auto
 
 _ENCODERS = ("facenet_vgg", "facenet_casia", "vit_b", "vit_l")
 
@@ -50,17 +51,19 @@ def resolve_enc_model(style, enc_model):
     return enc_model
 
 
-def get_encoder_model(style, enc_model, device=None, **model_kw):
+def get_encoder_model(style, enc_model, device=None, mesh="auto", **model_kw):
     """String-dispatch encoder factory (reference grouping.py:19-26): FaceNet
     (VGGFace2 or CASIA weights) or ViT (B16 or L16). ``model_kw``
     (``params``, ``batch_size``, ``device_resize``, ``pack_size``) go to the
-    encoder."""
+    encoder. ``mesh``: a ``parallel.Mesh`` shards encoding over its devices;
+    ``"auto"`` and None keep one device (pipeline/mesh_auto.py)."""
     from ..models.wrappers import FaceNetEncoder, VitEncoder
 
     name = resolve_enc_model(style, enc_model)
+    mesh = mesh_auto.resolve_mesh(mesh)
     if name.startswith("vit"):
-        return VitEncoder(device, name == "vit_l", **model_kw)
-    return FaceNetEncoder(device, name == "facenet_casia", **model_kw)
+        return VitEncoder(device, name == "vit_l", mesh=mesh, **model_kw)
+    return FaceNetEncoder(device, name == "facenet_casia", mesh=mesh, **model_kw)
 
 
 def _batched(seq, size):

@@ -70,24 +70,31 @@ class FaceService:
     (pipeline/detection.get_detector_model, pipeline/grouping.get_encoder_model),
     ``det_kw``/``enc_kw`` go to them; ``criteria`` is the box accept/adjust
     rule set applied by ``extract``. ``device``: None means the card and
-    raises when there is none; ``"cpu"`` runs on the CPU. ``detector`` /
+    raises when there is none; ``"cpu"`` runs on the CPU. ``mesh``: as the
+    factories take it — a ``parallel.Mesh`` shards both models over its
+    devices, ``"auto"`` and None keep one device. ``detector`` /
     ``encoder`` replace the factories' models.
     """
 
     def __init__(self, style="live", det_model="default", enc_model="default",
-                 criteria=None, max_batch=32, device=None,
+                 criteria=None, max_batch=32, mesh="auto", device=None,
                  det_kw=None, enc_kw=None, detector=None, encoder=None):
+        from .pipeline.mesh_auto import resolve_mesh
+
         self.criteria = criteria or BoxCriteria()
         self.max_batch = max_batch
-        self.device = config.resolve_device(device)
+        mesh = resolve_mesh(mesh)
+        self.device = config.resolve_device(device) if mesh is None else mesh.devices[0]
         if detector is None:
             from .pipeline.detection import get_detector_model
 
-            detector = get_detector_model(style, det_model, self.device, **(det_kw or {}))
+            detector = get_detector_model(style, det_model, device, mesh=mesh,
+                                          **(det_kw or {}))
         if encoder is None:
             from .pipeline.grouping import get_encoder_model
 
-            encoder = get_encoder_model(style, enc_model, self.device, **(enc_kw or {}))
+            encoder = get_encoder_model(style, enc_model, device, mesh=mesh,
+                                        **(enc_kw or {}))
         self.detector = detector
         self.encoder = encoder
         self._lock = threading.Lock()
@@ -190,7 +197,9 @@ class FaceService:
         detector's per-frame-size geometry and priors, and the pinned host
         blocks of each batch shape. A data-dependent stage that blank
         frames do not reach (MTCNN's later stages, with no candidates) pays
-        its first call at the first request that reaches it."""
+        its first call at the first request that reaches it. A sharded
+        model rounds every batch up to its mesh's size, so each warm-up
+        call runs every replica."""
         with self._lock:
             if self.device.type == "cuda":
                 from .ops import _cuda
