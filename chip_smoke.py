@@ -111,7 +111,20 @@ any failed, printing no result line):
       one device;
    v. with two cards or more: the same on a cuda:0 + cuda:1 mesh, and every
       kernel (and ``MtcnnDetector``) on cuda:1 called while the thread's
-      current device is cuda:0; with one card it prints why it was skipped.
+      current device is cuda:0; with one card it prints why it was skipped;
+   w. a multi-host job: ``video_to_faces(mode="full", style="live",
+      det_model="mtcnn")`` (MTCNN bf16, FaceNet ``device_resize``) over three
+      1080p videos by two host processes on cuda:0 (this script run as
+      ``chip_smoke.py --mh-host SPEC``) through a shared gather directory,
+      their merged faces by label held to one process over the same videos
+      in the hosts' gather order; K1-K3 and K5 launched on each host; the
+      grouping ops (embedding dedup, K-means, silhouette) bit-equal in both
+      hosts and this process; per host the wall, the ms of each all-gather
+      and of the transport alone;
+   x. the same with a gloo process group and the anime defaults (R-CNN
+      bf16 + ViT ``device_resize``: K4 and K5 on each host) in
+      ``mode="full"``, then ``mode="grouping"`` by the same hosts over one
+      shared folder of the first run's faces.
 
 The YOLO path (4l-4n, 4q) runs no hand-written kernel: its convolutions are
 cuDNN's and its resize the matrix products of ``ops/resize.py``; its
@@ -433,6 +446,31 @@ def facenet_params(seed, calibrate_on=None):
         f = feats[0].double().cpu().numpy()
         tree["head_bn"]["mean"] = f.mean(0).astype(np.float32)
         tree["head_bn"]["var"] = (f.var(0) + 1e-6).astype(np.float32)
+    return tree
+
+
+def vit_params(calibrate_on, seed=0):
+    """The seeded ViT-B16 of a missing checkpoint, as a parameter tree in the
+    JAX package's layout, with the final LayerNorm's bias set to minus its
+    mean output over 64 smooth seeded images on ``calibrate_on``: the random
+    network's embeddings all point one way (within the embedding dedup's
+    0.25 cosine distance of each other), and centering them spreads them."""
+    import cv2
+    import torch
+
+    from videotofaces_tpu_torch.models import vit as V
+    from videotofaces_tpu_torch.utils.weights import vit_to_jax
+
+    model = V.ViT.seeded(0, **V.B16).to(calibrate_on).eval()
+    crng = np.random.default_rng(seed + 1)
+    imgs = np.stack([cv2.resize(crng.integers(0, 256, (8, 8, 3)).astype(np.uint8),
+                                (128, 128), interpolation=cv2.INTER_CUBIC)
+                     for _ in range(64)])
+    x = V.preprocess_uint8(torch.from_numpy(imgs)).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        emb = model(x.to(calibrate_on)).double().mean(0).cpu().numpy()
+    tree = vit_to_jax(model.state_dict())
+    tree["norm"]["bias"] = (tree["norm"]["bias"] - emb).astype(np.float32)
     return tree
 
 
@@ -1888,6 +1926,345 @@ def other_device_calls(frames):
         "the detector on cuda:0 (%s detections)" % [len(d) for d in got])
 
 
+# -- multi-host jobs (4w, 4x): host processes started from this script ---------
+
+MH_TIMEOUT = 600   # seconds a host process may take
+
+
+def mh_videos(root, seeds=(31, 37, 41), b=4, fps=4.0):
+    """Three small synthetic 1080p videos (``b`` frames each, one sample per
+    frame at ``video_step`` 1 / fps), different seeds so that no face
+    repeats across them. Returns their directory."""
+    vids = osp.join(root, "vids")
+    os.makedirs(vids)
+    for k, seed in enumerate(seeds):
+        write_video(osp.join(vids, "v%d.mp4" % (k + 1)), seeded_frames(seed, b=b), fps)
+    return vids
+
+
+def host_order(src_dir, dst_dir, hosts=2, link=os.symlink):
+    """Link (or copy, with ``link=shutil.copyfile``) the sorted files of
+    ``src_dir`` into ``dst_dir`` under names whose sorted order is the
+    order a job of ``hosts`` hosts gathers their rows in: host 0's
+    round-robin share, then host 1's. Keeping the earlier face (the hash and
+    embedding dedup) and the K-means++ draw depend on that order, so the
+    single-process run that the hosts are held to sees the rows as they do."""
+    os.makedirs(dst_dir)
+    names = sorted(os.listdir(src_dir))
+    for h in range(hosts):
+        for k, name in enumerate(names[h::hosts]):
+            link(osp.join(src_dir, name), osp.join(dst_dir, "%d%04d_%s" % (h, k, name)))
+    return dst_dir
+
+
+def faces_by_label(root):
+    """After clustering: {label: sorted face-file bytes}."""
+    faces = osp.join(root, "faces")
+    out = {}
+    for lbl in sorted(os.listdir(faces)):
+        d = osp.join(faces, lbl)
+        if osp.isdir(d):
+            out[lbl] = sorted(open(osp.join(d, f), "rb").read() for f in os.listdir(d))
+    return out
+
+
+def merged_hosts(roots, want):
+    """The hosts' faces by label, merged, for the labels of ``want``."""
+    got = [faces_by_label(r) for r in roots]
+    assert set().union(*got) <= set(want), (sorted(set().union(*got)), sorted(want))
+    return {lbl: sorted(sum((g.get(lbl, []) for g in got), [])) for lbl in want}
+
+
+def mh_factories(style, params_npz):
+    """``video_to_faces``'s model factories for 4w / 4x: MTCNN (bf16) +
+    FaceNet (``device_resize``) on the parameters saved beside
+    ``params_npz`` (live), or the seeded R-CNN (bf16) of a missing
+    checkpoint + ViT-B16 (``device_resize``) on the saved ``vit_params``
+    (anime)."""
+    from videotofaces_tpu_torch.pipeline.detection import get_detector_model
+    from videotofaces_tpu_torch.pipeline.grouping import get_encoder_model
+    from videotofaces_tpu_torch.utils.weights import load_params
+
+    if style == "anime":
+        vit = load_params(params_npz + ".vit.npz")
+        return patched_factories(
+            get_detector_model=lambda s, det, d: get_detector_model(s, det, d, bf16=True),
+            get_encoder_model=lambda s, enc, d: get_encoder_model(
+                s, enc, d, params=vit, device_resize=True))
+    det_params = load_params(params_npz + ".mtcnn.npz")
+    enc_params = load_params(params_npz + ".facenet.npz")
+    return patched_factories(
+        get_detector_model=lambda s, det, d: get_detector_model(
+            s, det, d, params=det_params, bf16=True),
+        get_encoder_model=lambda s, enc, d: get_encoder_model(
+            s, enc, d, params=enc_params, device_resize=True))
+
+
+def mh_job(style, mode, input_path, out_dir):
+    """One ``video_to_faces`` job of 4w / 4x (the style's defaults but the
+    MTCNN detector for live and a 1 / 4 s video step)."""
+    from videotofaces_tpu_torch import video_to_faces
+
+    os.makedirs(out_dir, exist_ok=True)
+    kw = dict(det_model="mtcnn") if style == "live" else {}
+    video_to_faces(input_path=input_path, out_dir=out_dir, mode=mode, style=style,
+                   video_step=0.25, **kw)
+
+
+def grouping_ops_digests(dev, n=2048):
+    """sha256 of the embedding-dedup Gram's (min, argmin), the K-means fit
+    (labels, centers, inertia) and the silhouette on ``n`` x 512 seeded
+    embeddings on ``dev``: every host of a job must compute them bit for
+    bit alike."""
+    import hashlib
+
+    import torch
+
+    from videotofaces_tpu_torch.ops import cluster_scores as CSC
+    from videotofaces_tpu_torch.ops import distances as D
+    from videotofaces_tpu_torch.ops.kmeans import kmeans_fit
+
+    x = unit_blobs(8, n)
+    mins, inds = D.dedup_cosine(torch.from_numpy(x).to(dev))
+    labels, centers, inertia = kmeans_fit(x, 8, device=dev)
+    sil = CSC.silhouette_score(x, labels, 8, device=dev)
+
+    def digest(*arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()[:16]
+
+    return {"dedup": digest(mins.cpu().numpy(), inds.cpu().numpy()),
+            "kmeans": digest(labels, centers, np.float64(inertia)),
+            "silhouette": digest(np.float64(sil))}
+
+
+def mh_host_main(spec):
+    """One host of a 4w / 4x job, in its own process (``chip_smoke.py
+    --mh-host SPEC``): joins the gloo group when the spec names one, runs
+    each job of the spec on the card, and prints one ``MH_HOST {...}`` line:
+    per job the wall seconds, the kernel launches and the ms of each
+    all-gather; with ``ops``, the grouping ops' digests."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, osp.dirname(osp.abspath(__file__)))
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.parallel import multihost as MH
+
+    dist = None
+    if spec.get("gloo"):
+        import torch.distributed as dist
+
+        dist.init_process_group("gloo", init_method="file://" + spec["gloo"],
+                                rank=spec["rank"], world_size=spec["world"])
+    gathers = []
+    allgather = MH.allgather_rows
+
+    def timed_allgather(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return allgather(*args, **kw)
+        finally:
+            gathers.append((time.perf_counter() - t0) * 1e3)
+
+    MH.allgather_rows = timed_allgather
+    config.set_precision("highest")
+    out = {"index": MH.process_info()[0], "jobs": []}
+    try:
+        with mh_factories(spec["style"], spec.get("params")):
+            for mode, input_path, out_dir in spec["jobs"]:
+                del gathers[:]
+                reset_launches()
+                t0 = time.perf_counter()
+                mh_job(spec["style"], mode, input_path, out_dir)
+                torch.cuda.synchronize()
+                out["jobs"].append({"mode": mode, "wall_s": time.perf_counter() - t0,
+                                    "launches": read_launches(), "gather_ms": list(gathers)})
+        if spec.get("ops"):
+            out["ops"] = grouping_ops_digests(torch.device("cuda"))
+        # the transport alone: once the hosts are lined up by one gather,
+        # five gathers of 1,024 embedding rows (512 float32) and names each
+        rows = np.random.default_rng(out["index"]).normal(size=(1024, 512)).astype(np.float32)
+        names = ["h%02d_%06d_0.jpg" % (out["index"], k) for k in range(len(rows))]
+        allgather(rows[:1], names[:1])
+        out["transport_ms"] = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            g, _ = allgather(rows, names)
+            out["transport_ms"].append((time.perf_counter() - t0) * 1e3)
+        assert g.shape == (1024 * MH.process_info()[1], 512)
+    finally:
+        if dist is not None:
+            dist.barrier()
+            dist.destroy_process_group()
+    log("MH_HOST " + json.dumps(out))
+    return 0
+
+
+def run_hosts(specs, envs):
+    """Start one ``--mh-host`` process per spec at once, wait for all (the
+    rest are killed when one fails or outlives ``MH_TIMEOUT``), and return
+    their ``MH_HOST`` records."""
+    procs = []
+    for spec, env in zip(specs, envs):
+        full = {k: v for k, v in os.environ.items() if not k.startswith("V2F_")}
+        full.update(env)
+        procs.append(subprocess.Popen(
+            [sys.executable, osp.abspath(__file__), "--mh-host", json.dumps(spec)],
+            env=full, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MH_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log("   host %d exited with %d; its output ends:\n%s"
+                % (i, p.returncode, "\n".join(o.splitlines()[-40:])))
+    assert all(p.returncode == 0 for p in procs), "a host process failed"
+    return [json.loads(next(ln for ln in o.splitlines()
+                            if ln.startswith("MH_HOST "))[len("MH_HOST "):]) for o in outs]
+
+
+def log_hosts(records, single_s):
+    """Per host and job: the wall (the host's models built cold, where this
+    process's are warm), the ms of each all-gather (waiting for the slower
+    host included) and the launches; then the transport alone."""
+    for r in records:
+        for job in r["jobs"]:
+            g = job["gather_ms"]
+            log("   host %d, %s: %.2f s wall (one process: %.2f s); %d all-gathers, "
+                "ms each %s; launches %s"
+                % (r["index"], job["mode"], job["wall_s"], single_s[job["mode"]], len(g),
+                   ", ".join("%.2f" % v for v in g), job["launches"]))
+        log("   host %d, transport alone: ms per all-gather of 1,024 x 512 float32 rows "
+            "per host %s" % (r["index"], ", ".join("%.2f" % v for v in r["transport_ms"])))
+
+
+def multihost_live(dev):
+    """4w: ``video_to_faces(mode="full", style="live", det_model="mtcnn")``
+    over three 1080p videos by two host processes on cuda:0 through a
+    shared gather directory, held to one process over the same videos in
+    the hosts' gather order; then the grouping ops' digests of both hosts
+    against this process's."""
+    import uuid
+
+    import torch
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.utils.weights import flatten, save_npz
+
+    config.set_precision("highest")   # the process default, as in the hosts
+    with tempfile.TemporaryDirectory() as tmp:
+        vids = mh_videos(tmp)
+        params = osp.join(tmp, "params")
+        save_npz(params + ".mtcnn.npz", flatten(seeded_params(0, 2.0)))
+        save_npz(params + ".facenet.npz", flatten(facenet_params(5, dev)))
+        with mh_factories("live", params):
+            reset_launches()
+            t0 = time.perf_counter()
+            mh_job("live", "full", host_order(vids, osp.join(tmp, "ordered")),
+                   osp.join(tmp, "single"))
+            torch.cuda.synchronize()
+            single_s = {"full": time.perf_counter() - t0}
+            log("   one process: %.2f s, launches %s" % (single_s["full"], read_launches()))
+        want = faces_by_label(osp.join(tmp, "single"))
+        env = dict(V2F_PROCESS_COUNT="2", V2F_GATHER_DIR=osp.join(tmp, "gather"),
+                   V2F_RUN_ID=uuid.uuid4().hex)
+        specs = [dict(style="live", params=params, ops=True,
+                      jobs=[("full", vids, osp.join(tmp, "h%d" % i))]) for i in range(2)]
+        records = run_hosts(specs, [dict(env, V2F_PROCESS_INDEX=str(i)) for i in range(2)])
+        log_hosts(records, single_s)
+        got = merged_hosts([osp.join(tmp, "h%d" % i) for i in range(2)], want)
+        log("   faces by label: one process %s, two hosts %s"
+            % ({k: len(v) for k, v in want.items()}, {k: len(v) for k, v in got.items()}))
+        assert sum(map(len, want.values())) > 9, "too few faces to hold the hosts to"
+        assert got == want, "the hosts' merged output differs from one process's"
+        for r in records:
+            launches = r["jobs"][0]["launches"]
+            for name in ("pnet_level", "pool_crops", "resize_normalize"):
+                assert launches[name] > 0, "host %d launched no %s" % (r["index"], name)
+        ops = grouping_ops_digests(dev)
+        log("   grouping ops digests: this process %s, hosts %s"
+            % (ops, [r["ops"] for r in records]))
+        assert all(r["ops"] == ops for r in records), "the hosts' grouping ops differ"
+
+
+def multihost_anime(dev):
+    """4x: the anime defaults (Faster R-CNN bf16 + ViT-B16 ``device_resize``,
+    its embeddings centered by ``vit_params``) in ``mode="full"`` over three 1080p videos by two host processes on
+    cuda:0 in a gloo process group, then ``mode="grouping"`` by the same
+    hosts over one shared folder of the first run's faces; each held to one
+    process over the same inputs in the hosts' gather order."""
+    import shutil
+
+    import torch
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.utils.weights import flatten, save_npz
+
+    config.set_precision("highest")   # the process default, as in the hosts
+    with tempfile.TemporaryDirectory() as tmp:
+        vids = mh_videos(tmp, seeds=(43, 47, 53))
+        params = osp.join(tmp, "params")
+        save_npz(params + ".vit.npz", flatten(vit_params(dev)))
+        with mh_factories("anime", params):
+            single_s = {}
+            reset_launches()
+            t0 = time.perf_counter()
+            mh_job("anime", "full", host_order(vids, osp.join(tmp, "ordered")),
+                   osp.join(tmp, "single"))
+            torch.cuda.synchronize()
+            single_s["full"] = time.perf_counter() - t0
+            log("   one process, full: %.2f s, launches %s"
+                % (single_s["full"], read_launches()))
+            want = faces_by_label(osp.join(tmp, "single"))
+            # grouping mode: the first run's faces in one flat folder, shared by
+            # the hosts; the single process lists them in the hosts' order
+            flat = osp.join(tmp, "flat")
+            os.makedirs(flat)
+            for lbl, files in want.items():
+                for k, data in enumerate(files):
+                    with open(osp.join(flat, "%s_%04d.jpg" % (lbl, k)), "wb") as f:
+                        f.write(data)
+            shutil.copytree(flat, osp.join(tmp, "shared", "faces"))
+            host_order(flat, osp.join(tmp, "gsingle", "faces"), link=shutil.copyfile)
+            t0 = time.perf_counter()
+            mh_job("anime", "grouping", None, osp.join(tmp, "gsingle"))
+            torch.cuda.synchronize()
+            single_s["grouping"] = time.perf_counter() - t0
+        gwant = faces_by_label(osp.join(tmp, "gsingle"))
+        specs = [dict(style="anime", params=params, gloo=osp.join(tmp, "gloo_init"),
+                      rank=i, world=2,
+                      jobs=[("full", vids, osp.join(tmp, "h%d" % i)),
+                            ("grouping", None, osp.join(tmp, "shared"))])
+                 for i in range(2)]
+        records = run_hosts(specs, [{}, {}])
+        log_hosts(records, single_s)
+        got = merged_hosts([osp.join(tmp, "h%d" % i) for i in range(2)], want)
+        log("   full, faces by label: one process %s, two hosts %s"
+            % ({k: len(v) for k, v in want.items()}, {k: len(v) for k, v in got.items()}))
+        assert sum(map(len, want.values())) > 9, "too few faces to hold the hosts to"
+        assert got == want, "the hosts' merged output differs from one process's"
+        gotg = faces_by_label(osp.join(tmp, "shared"))
+        log("   grouping, faces by label: one process %s, two hosts %s"
+            % ({k: len(v) for k, v in gwant.items()}, {k: len(v) for k, v in gotg.items()}))
+        assert gotg == gwant, "the hosts' grouping differs from one process's"
+        for r in records:
+            launches = r["jobs"][0]["launches"]
+            for name in ("roi_align", "resize_normalize"):
+                assert launches[name] > 0, "host %d launched no %s" % (r["index"], name)
+            assert r["jobs"][1]["launches"]["resize_normalize"] > 0
+
+
 def main():
     import torch
 
@@ -2634,6 +3011,15 @@ def main():
                               unit_blobs(6, 4096))
             other_device_calls(frames_np)
 
+    with phase("4w. two hosts on cuda:0, shared gather directory: video_to_faces(mode="
+               "'full', style='live', det_model='mtcnn') over three 1080p videos vs one "
+               "process"):
+        multihost_live(dev)
+
+    with phase("4x. two hosts on cuda:0, gloo process group: the anime defaults, "
+               "mode='full' then mode='grouping' on a shared folder, vs one process"):
+        multihost_anime(dev)
+
     if failures:
         print("chip_smoke: %d phase(s) failed:\n  %s" % (len(failures),
                                                         "\n  ".join(failures)),
@@ -2647,4 +3033,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mh-host"]:
+        sys.exit(mh_host_main(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -625,3 +625,71 @@ def test_kernels_follow_the_tensors_device():
     import chip_smoke as CS
 
     CS.other_device_calls(CS.seeded_frames(7, b=2, h=360, w=640))
+
+
+_MH_HOST = r"""
+import hashlib, os, sys
+sys.path.insert(0, ".")
+import numpy as np, torch
+from videotofaces_tpu_torch.ops import cluster_scores as CS
+from videotofaces_tpu_torch.ops import distances as D
+from videotofaces_tpu_torch.ops.kmeans import kmeans_fit
+from videotofaces_tpu_torch.parallel import multihost as MH
+if os.environ.get("GLOO_INIT"):
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method="file://" + os.environ["GLOO_INIT"],
+                            rank=int(os.environ["RANK_"]), world_size=2)
+x = np.random.default_rng(0).normal(size=(2048, 512)).astype(np.float32)
+x /= np.linalg.norm(x, axis=1, keepdims=True)
+mins, inds = D.dedup_cosine(torch.from_numpy(x).to("cuda:0"))
+labels, centers, inertia = kmeans_fit(x, 8, device="cuda:0")
+sil = CS.silhouette_score(x, labels, 8, device="cuda:0")
+h = hashlib.sha256()
+for a in (mins.cpu().numpy(), inds.cpu().numpy(), labels, centers, np.float64(inertia),
+          np.float64(sil)):
+    h.update(np.ascontiguousarray(a).tobytes())
+rows, names = MH.allgather_rows(np.frombuffer(h.digest(), np.uint8)[None],
+                                 ["host%d" % MH.process_info()[0]])
+assert rows.shape == (2, 32) and names == ["host0", "host1"], (rows.shape, names)
+assert (rows[0] == rows[1]).all(), "the two processes' grouping ops differ"
+if os.environ.get("GLOO_INIT"):
+    dist.barrier()
+    dist.destroy_process_group()
+print("OK", h.hexdigest()[:16])
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["dir", "gloo"])
+def test_two_processes_on_one_card_gather_and_agree(transport, tmp_path):
+    """Two host processes on cuda:0 all-gather through the shared gather
+    directory or a gloo group, and compute the embedding dedup, K-means and
+    silhouette bit for bit alike (what every host of a multi-host job
+    relies on)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _need_cuda()
+    root = Path(__file__).resolve().parents[1]
+    procs = []
+    for i in range(2):
+        env = {k: v for k, v in os.environ.items() if not k.startswith("V2F_")}
+        if transport == "dir":
+            env.update(V2F_PROCESS_INDEX=str(i), V2F_PROCESS_COUNT="2",
+                       V2F_GATHER_DIR=str(tmp_path), V2F_RUN_ID="card")
+        else:
+            env.update(GLOO_INIT=str(tmp_path / "init"), RANK_=str(i))
+        procs.append(subprocess.Popen([sys.executable, "-c", _MH_HOST], cwd=str(root), env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert all(p.returncode == 0 for p in procs), outs
+    digests = [o.strip().splitlines()[-1] for o in outs]
+    assert digests[0] == digests[1] and digests[0].startswith("OK"), digests

@@ -23,7 +23,7 @@ def _forbidden(name):
 def _port_sources():
     files = sorted((ROOT / "videotofaces_tpu_torch").rglob("*.py"))
     assert len(files) > 20
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mh_driver.py"]
 
 
 def test_no_jax_imports_in_port_sources():
@@ -87,13 +87,23 @@ def test_port_imports_with_jax_blocked():
 
 _BLOCKED_PARALLEL = _BLOCKED_IMPORT.split("import videotofaces_tpu_torch\n")[0] + r"""
 import pkgutil
+import importlib.util, os
 import videotofaces_tpu_torch.parallel as P
 from videotofaces_tpu_torch.parallel import default_mesh, make_mesh
+from videotofaces_tpu_torch.parallel import multihost as MH
 from videotofaces_tpu_torch.pipeline.mesh_auto import default_mesh as auto_default_mesh
+from videotofaces_tpu_torch import convert_weights
 names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + ".")]
-assert names == ["videotofaces_tpu_torch.parallel.mesh"], names
+assert names == ["videotofaces_tpu_torch.parallel.mesh",
+                 "videotofaces_tpu_torch.parallel.multihost"], names
 assert default_mesh is auto_default_mesh and default_mesh() is None
 assert make_mesh(devices=["cpu"] * 2).shape["data"] == 2
+assert not hasattr(P, "allgather_rows")    # imported by name, as in the JAX package
+for k in [k for k in os.environ if k.startswith("V2F_PROCESS")]:
+    del os.environ[k]
+assert MH.process_info() == (0, 1)
+spec = importlib.util.spec_from_file_location("torch_mh_driver", "tests/torch_mh_driver.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("OK")
@@ -101,10 +111,12 @@ print("OK")
 
 
 def test_parallel_package_imports_with_jax_blocked():
-    """The multi-device modules (``parallel/``, ``pipeline/mesh_auto.py``),
-    which stand in for the JAX package's ``parallel/``, import no JAX and
-    nothing of the JAX package; ``make_mesh`` and ``default_mesh`` are
-    exported from ``parallel``."""
+    """The multi-device modules (``parallel/`` with ``mesh.py`` and
+    ``multihost.py``, ``pipeline/mesh_auto.py``), which stand in for the JAX
+    package's ``parallel/``, the checkpoint converter and the multi-host
+    test driver import no JAX and nothing of the JAX package; ``make_mesh``
+    and ``default_mesh`` are exported from ``parallel``, ``multihost`` is
+    imported by name as in the JAX package."""
     r = subprocess.run([sys.executable, "-c", _BLOCKED_PARALLEL], cwd=str(ROOT),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]

@@ -1,5 +1,5 @@
 """``video_to_faces`` — the single public entry point (counterpart of
-videotofaces_tpu/api.py, single process, one device).
+videotofaces_tpu/api.py).
 
 The same 27 keyword arguments with the same defaults as the JAX package and
 the reference orchestrator (main.py:13-82), the same three modes (``full``
@@ -18,13 +18,25 @@ Where the JAX package shards over every device of the host by default
 one card: the port's ``mesh="auto"`` keeps one device until a sharded call
 beats one card (pipeline/mesh_auto.py). The model factories,
 ``FaceService`` and the grouping ops shard over a ``parallel.Mesh`` passed
-to them. The JAX package's multi-host jobs are not ported.
+to them.
+
+Multi-host jobs (parallel/multihost.py): launched as one process per host
+with ``V2F_PROCESS_INDEX`` / ``V2F_PROCESS_COUNT`` and a gather directory
+(``V2F_GATHER_DIR`` + ``V2F_RUN_ID``), or under a ``torch.distributed``
+process group that the launching script initialized, each host detects
+its round-robin shard of the videos (or, in grouping mode, of the face
+images of a shared ``out_dir``), names its faces ``hNN_...``, and joins
+the global hash dedup, embedding dedup and grouping, which every host
+computes identically from the gathered rows.
 """
 
 import os.path as osp
 from typing import NamedTuple, Optional
 
+import numpy as np
+
 from . import config, prep
+from .parallel import multihost as MH
 from .pipeline.detection import detect_faces, get_detector_model, resolve_det_model
 from .pipeline.dupes import remove_dupes_overall
 from .pipeline.grouping import (classify_faces, cluster_faces, encode_faces,
@@ -58,6 +70,26 @@ def _plan_grouping(mode, group_mode, clusters, ref_dir, out_dir, want_eval):
         paths = prep.get_paths_for_grouping(out_dir)
         if not paths:
             return None
+        # multi-host grouping-only: each host encodes a disjoint shard, like
+        # detection shards videos — without this, every host would gather H
+        # identical copies of every row and the global dedup would mark the
+        # duplicates (distance 0) for deletion, destroying the face set.
+        # Round-robin sharding is disjoint-and-complete ONLY if every host
+        # lists the identical directory (shared filesystem); with host-local
+        # out_dirs most faces would silently never be encoded. Verify by
+        # all-gathering the name lists before sharding.
+        index, count = MH.process_info()
+        if count > 1:
+            names = [osp.basename(p) for p in paths]
+            _, gathered = MH.allgather_rows(
+                np.zeros((len(names), 1), np.uint8), names)
+            if sorted(gathered) != sorted(names * count):
+                raise RuntimeError(
+                    "grouping-only multi-host requires every host to see the "
+                    "same out_dir listing (shared filesystem): host %d lists "
+                    "%d faces but the %d hosts' listings differ" %
+                    (index, len(names), count))
+        paths = MH.shard_list(paths)
     return _GroupingPlan(ks, refs, paths)
 
 
@@ -69,6 +101,9 @@ def _run_detection(input_path, input_ext, style, det_model, device,
     videos = prep.get_video_list(input_path, input_ext)
     if not videos:
         return None, None
+    # multi-host job: each host detects its own shard of the library
+    # (parallel/multihost.py); dedup inside detect_faces goes global
+    videos = MH.shard_list(videos)
     detector = get_detector_model(style, det_model, device)
     out = detect_faces(videos, detector, sampling, criteria, layout, hash_thr,
                        collect_crops=collect_crops)
@@ -81,6 +116,13 @@ def _run_grouping(paths, plan, style, enc_model, device, group_mode,
     encoder = get_encoder_model(style, enc_model, device)
     features = encode_faces(paths, encoder, encode_spec.batch_size,
                             encode_spec.area, images=crops)
+    if MH.process_info()[1] > 1:
+        # go global: every host gathers all (embedding, name) rows, computes
+        # identical dedup/cluster decisions, and moves only its local files
+        names = [osp.basename(p) for p in paths]
+        features, g_names = MH.allgather_rows(
+            np.asarray(features, np.float32), names)
+        paths = [layout.face_path(n) for n in g_names]
     thr = encode_spec.dup_thr
     if thr and thr != -1:
         features, paths = remove_dupes_overall(features, paths, "enc", thr, layout,
@@ -131,7 +173,10 @@ def video_to_faces(input_path=None, input_ext=None,
         if plan is None:
             return
 
-    layout = OutputLayout(root=out_dir, prefix=out_prefix, resize_to=resize_to,
+    # multi-host: face names carry a host tag so the global namespace is
+    # collision-free (parallel/multihost.host_prefix is identity single-host)
+    layout = OutputLayout(root=out_dir, prefix=MH.host_prefix(out_prefix),
+                          resize_to=resize_to,
                           save_frames=save_frames, save_rejects=save_rejects,
                           save_dupes=save_dupes)
 
@@ -149,7 +194,9 @@ def video_to_faces(input_path=None, input_ext=None,
         if faces is None:
             return
 
-    if grouping and faces:
+    # a host whose shard yielded no faces must still join the global gathers
+    # of a multi-host job, or its peers would block in allgather_rows
+    if grouping and faces is not None and (faces or MH.process_info()[1] > 1):
         encode_spec = EncodeSpec(enc_batch_size, enc_area, enc_dup_thr)
         if _test_enc:
             test_grouping(faces, plan.refs, style, enc_model, device, out_dir,

@@ -170,3 +170,38 @@ def preprocess_uint8(images_u8_rgb):
     """(x - 127.5) / 128 (facenet.py:179 blobFromImages affine): uint8
     [..., 3] RGB -> float32."""
     return (images_u8_rgb.to(torch.float32) - 127.5) / 128.0
+
+
+def torch_spec():
+    """Ordered checkpoint spec matching the reference InceptionResnetV1
+    registration order (encoders/facenet.py:126-154, classifier head dropped):
+    stem conv units, 5x Block35, Mixed_6a, 10x Block17, Mixed_7a, 6x Block8,
+    Linear(1792->512, no bias), BatchNorm1d; the JAX layout's paths, which
+    ``InceptionResnetV1.from_jax`` reads."""
+    from ..utils import weights as W
+
+    els = []
+    for i in range(6):
+        els += W.convunit(f"stem{i}")
+    for i in range(5):  # Block35: branch0, branch1 (2 units), branch2 (3), out conv
+        p = f"a{i}"
+        for unit in ("b0", "b1_0", "b1_1", "b2_0", "b2_1", "b2_2"):
+            els += W.convunit(f"{p}/{unit}")
+        els.append(W.conv(f"{p}/out", bias=True))
+    for unit in ("b0", "b1_0", "b1_1", "b1_2"):  # Mixed_6a
+        els += W.convunit(f"red_a/{unit}")
+    for i in range(10):  # Block17
+        p = f"b{i}"
+        for unit in ("b0", "b1_0", "b1_1", "b1_2"):
+            els += W.convunit(f"{p}/{unit}")
+        els.append(W.conv(f"{p}/out", bias=True))
+    for unit in ("b0_0", "b0_1", "b1_0", "b1_1", "b2_0", "b2_1", "b2_2"):  # Mixed_7a
+        els += W.convunit(f"red_b/{unit}")
+    for i in range(6):  # 5x Block8(relu) + final Block8(no relu)
+        p = f"c{i}"
+        for unit in ("b0", "b1_0", "b1_1", "b1_2"):
+            els += W.convunit(f"{p}/{unit}")
+        els.append(W.conv(f"{p}/out", bias=True))
+    els.append(W.linear("head", bias=False))
+    els.append(W.bn("head_bn"))
+    return els

@@ -349,3 +349,28 @@ def full_forward(model, frames_u8, minsize=20, caps=Caps(),
     out_valid, boxes, scores, landmarks = _select_topk(
         scores, keep, min(caps.out, k3), boxes, scores, landmarks)
     return boxes, scores, landmarks, out_valid, counts
+
+
+def torch_spec():
+    """Checkpoint spec in the reference registration order (mtcnn.py:12-130):
+    PNet (conv1..3 + PReLUs, cls, reg), RNet (+dense4/prelu4, cls, reg),
+    ONet (+dense5/prelu5, cls, reg, landmarks). The paths are the JAX
+    layout's, which ``MTCNN.from_jax`` reads."""
+    from ..utils import weights as W
+
+    def pconv(path):
+        return [W.conv(f"{path}/conv", bias=True), W.param(f"{path}/prelu/alpha")]
+
+    els = []
+    for c in ("conv1", "conv2", "conv3"):
+        els += pconv(f"pnet/{c}")
+    els += [W.conv("pnet/cls", bias=True), W.conv("pnet/reg", bias=True)]
+    for c in ("conv1", "conv2", "conv3"):
+        els += pconv(f"rnet/{c}")
+    els += [W.linear("rnet/dense4"), W.param("rnet/prelu4/alpha"),
+            W.linear("rnet/cls"), W.linear("rnet/reg")]
+    for c in ("conv1", "conv2", "conv3", "conv4"):
+        els += pconv(f"onet/{c}")
+    els += [W.linear("onet/dense5"), W.param("onet/prelu5/alpha"),
+            W.linear("onet/cls"), W.linear("onet/reg"), W.linear("onet/lmk")]
+    return els

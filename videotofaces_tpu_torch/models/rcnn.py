@@ -37,7 +37,7 @@ from ..ops.resize import bilinear_resize_matmul
 from ..ops.roi_align import roi_align_fpn
 from ..utils.weights import frcnn_from_jax
 from .layers import ConvUnit, init_uniform_fan_in_
-from .resnet import ResNet
+from .resnet import ResNet, torch_spec as resnet_spec
 
 STRIDES = (4, 8, 16, 32, 64)
 IMAGENET_MEAN = (123.675, 116.28, 103.53)
@@ -327,3 +327,27 @@ def full_forward(model, frames_u8, resized_hw, canvas_hw, priors_per_level,
                          device=x.device)
     return (boxes * scale, scores, classes, valid, select_overflow, roi_dropped,
             roi_truncated)
+
+
+def torch_spec(num_classes=1):
+    """Checkpoint spec in the reference registration order (rcnn.py:126-139
+    after AnimeFRCNN.wconv): ResNet50 body, FPN laterals then smooths, RPN
+    conv/log/reg, RoI fc0/fc1/cls/reg; returns (body, head). The RoI fc0
+    consumes flattened 7x7x256 maps, in (7, 7, C) order in the JAX layout
+    and in the port: ``linear_reshaped`` turns the reference's NCHW order
+    into it."""
+    from ..utils import weights as W
+
+    els = resnet_spec(prefix="ResNet_0/")
+    for i in range(4):
+        els.append(W.conv(f"fpn/lateral{i}/conv", bias=True))
+    for i in range(4):
+        els.append(W.conv(f"fpn/smooth{i}/conv", bias=True))
+    els.append(W.conv("rpn/conv/conv", bias=True))
+    els.append(W.conv("rpn/log", bias=True))
+    els.append(W.conv("rpn/reg", bias=True))
+    head = [W.linear_reshaped("fc0", (256, 7, 7), (1, 2, 0)),
+            W.linear("fc1"),
+            W.linear("cls"),
+            W.linear("reg")]
+    return els, head

@@ -58,3 +58,20 @@ class ResNet(nn.Module):
 
 def resnet50(bn_eps=1e-5):
     return ResNet((3, 4, 6, 3), bn_eps)
+
+
+def torch_spec(block_counts=(3, 4, 6, 3), prefix=""):
+    """Checkpoint spec in the reference registration order (stem, then each
+    bottleneck's u1/u2/u3 followed by its downsample projection), with the
+    JAX layout's paths."""
+    from ..utils import weights as W
+
+    els = W.convunit(f"{prefix}stem")
+    for li, n in enumerate(block_counts):
+        for bi in range(n):
+            p = f"{prefix}layer{li + 1}_block{bi}"
+            for u in ("u1", "u2", "u3"):
+                els += W.convunit(f"{p}/{u}")
+            if bi == 0:
+                els += W.convunit(f"{p}/downsample")
+    return els

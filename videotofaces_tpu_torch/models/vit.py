@@ -127,3 +127,26 @@ def preprocess_uint8(images_u8_rgb):
     """(x - 127.5) / 127.5, the cv2.blobFromImages(1/127.5, 127.5) affine
     (encoders/vit.py:141): uint8 [..., 3] RGB -> float32."""
     return (images_u8_rgb.to(torch.float32) - 127.5) / 127.5
+
+
+def torch_spec(depth=12):
+    """Ordered checkpoint spec matching the reference ViT registration order
+    (encoders/vit.py:80-94 after the AnimeVIT.wconv reordering): class token,
+    positional embedding, patch conv, then per block norm1 / q / k / v / proj /
+    norm2 / fc1 / fc2, then the final norm; the JAX layout's paths, which
+    ``ViT.from_jax`` reads."""
+    from ..utils import weights as W
+
+    els = [W.param("class_token"), W.param("pos_embedding"),
+           W.conv("patch_embedding", bias=True)]
+    for i in range(depth):
+        b = f"block{i}"
+        els.append(W.ln(f"{b}/norm1"))
+        for nm in ("q", "k", "v"):
+            els.append(W.linear(f"{b}/attn/{nm}"))
+        els.append(W.linear(f"{b}/proj"))
+        els.append(W.ln(f"{b}/norm2"))
+        els.append(W.linear(f"{b}/mlp/fc1"))
+        els.append(W.linear(f"{b}/mlp/fc2"))
+    els.append(W.ln("norm"))
+    return els

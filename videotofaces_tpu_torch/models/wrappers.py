@@ -3,8 +3,9 @@ videotofaces_tpu/models/wrappers.py): the MTCNN, YOLOv3 and Faster R-CNN
 detectors and the FaceNet and ViT encoders.
 
 Weights resolution: converted .npz checkpoints from <repo>/weights, in the
-JAX package's layout (see tools/convert_weights.py), turned into the
-modules' state dicts by ``utils/weights.*_from_jax``. When a
+JAX package's layout (``python -m videotofaces_tpu_torch.convert_weights``
+writes them), turned into the modules' state dicts by
+``utils/weights.*_from_jax``. When a
 checkpoint is absent, the wrapper falls back to seeded random weights (an
 explicit ``torch.Generator``) with a loud note — every compute path still
 runs, only the predictions are untrained.
@@ -42,7 +43,8 @@ def _resolve_checkpoint(checkpoint):
         print("Using weights from: " + path)
         return W.load_params(path)
     print("NOTE: no converted weights at %s — using seeded random init "
-          "(run tools/convert_weights.py with the torch checkpoint for real weights)" % path)
+          "(run python -m videotofaces_tpu_torch.convert_weights with the torch checkpoint "
+          "for real weights)" % path)
     return None
 
 
@@ -176,13 +178,19 @@ class MtcnnDetector(_Replicas):
     the module docstring). ``params``: the JAX package's MTCNN parameter
     tree (numpy arrays), used instead of a checkpoint. ``bf16``: store the
     nets in bfloat16 and run the cascade in bfloat16, as the JAX detector's
-    flag does."""
+    flag does. ``crop_engine`` is accepted for compatibility with the JAX
+    package; whatever it names, the stage-2/3 crops run through the CUDA
+    kernel K3 on the card (the function of every JAX engine)."""
 
     def __init__(self, device=None, min_face_size=5, checkpoint="mtcnn_joined",
-                 batch_size=None, caps=None, params=None, mesh=None, bf16=False):
+                 batch_size=None, caps=None, params=None, mesh=None, bf16=False,
+                 crop_engine=None):
         from . import mtcnn as M
 
         print("Initializing MTCNN model for live-action face detection")
+        if crop_engine not in _CROP_ENGINES:
+            raise ValueError("unknown crop_engine %r (valid: %s)"
+                             % (crop_engine, _CROP_ENGINES))
         self.M = M
         self.compute_dtype = torch.bfloat16 if bf16 else None
         self.minsize = min_face_size
@@ -434,6 +442,7 @@ class FrcnnDetector(_BoxDetectorBase):
 
 # the JAX package's RoIAlign formulations; every one runs through K4 here
 _ROI_METHODS = (None, "dense", "sorted", "slice", "gather", "pallas", "pallas-interpret")
+_CROP_ENGINES = (None, "gather", "pallas", "pallas-interpret")
 
 
 class _Encoder(_Replicas):

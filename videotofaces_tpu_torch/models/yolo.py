@@ -280,3 +280,30 @@ def full_forward(model, frames_u8, resized_hw, canvas_hw, priors, strides,
     scale = torch.tensor([w / nw, h / nh, w / nw, h / nh], dtype=torch.float32,
                          device=boxes.device)
     return boxes * scale, scores, classes, valid, overflow
+
+
+def torch_spec(num_classes=1):
+    """Ordered checkpoint spec matching the torch reference's registration
+    order (detectors/yolo.py:34-120): Darknet53, neck, head (bridges then
+    preds), with the JAX layout's paths, which ``YOLOv3.from_jax`` reads.
+    Used by the converter (``videotofaces_tpu_torch.convert_weights``) for
+    the positional .pt remap."""
+    from ..utils import weights as W
+
+    els = []
+    els += W.convunit("backbone/conv1")
+    for i, n in enumerate([1, 2, 8, 8, 4]):
+        els += W.convunit(f"backbone/stage{i}_down")
+        for j in range(n):
+            els += W.convunit(f"backbone/stage{i}_res{j}/conv1")
+            els += W.convunit(f"backbone/stage{i}_res{j}/conv2")
+    for block, cv in [("detect1", "conv1"), ("detect2", "conv2"), ("detect3", None)]:
+        for c in range(5):
+            els += W.convunit(f"neck/{block}/c{c}")
+        if cv:
+            els += W.convunit(f"neck/{cv}")
+    for i in range(3):
+        els += W.convunit(f"head/bridge{i}")
+    for i in range(3):
+        els.append(W.conv(f"head/pred{i}", bias=True))
+    return els

@@ -73,7 +73,7 @@ def _inputs(x, labels, n_clusters, device, dtype=torch.float32):
     return xd, torch.from_numpy(labels.astype(np.int64)).to(device), k
 
 
-def silhouette_score(x, labels, n_clusters=None, device=None, mesh=None):
+def silhouette_score(x, labels, n_clusters=None, mesh=None, *, device=None):
     """Mean silhouette coefficient, euclidean metric. Samples in singleton
     clusters score 0 (sklearn convention). With ``mesh`` (parallel/mesh.py)
     the [rows, N] distance blocks shard on rows: each shard's device sums

@@ -129,8 +129,8 @@ def _assign(x, centers):
     return torch.argmin(d, dim=1), d.min(dim=1).values.sum()
 
 
-def kmeans_fit(x, n_clusters, random_state=0, max_iter=300, tol=1e-4, device=None,
-               mesh=None):
+def kmeans_fit(x, n_clusters, random_state=0, max_iter=300, tol=1e-4, mesh=None, *,
+               device=None):
     """Full K-means fit on ``device`` (None: the card). Returns (labels [N],
     centers [K, D], inertia). With ``mesh`` (parallel/mesh.py) the Lloyd
     steps run data-parallel: each shard assigns its block of rows and

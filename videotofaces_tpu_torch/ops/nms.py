@@ -88,12 +88,12 @@ def nms_keep_mask_bucketed(boxes, scores, valid, iou_thr, bucket=256,
     return torch.zeros_like(valid).scatter(1, order, keep_sorted)
 
 
-def iom_chain_suppress(boxes, scores, valid, iom_thr, plus_one=True):
+def iom_chain_suppress(boxes, scores, valid, iom_thr, group_ids=None, plus_one=True):
     """MTCNN final-stage 'Min' NMS with chain suppression, batched over the
     leading dims: a candidate is dropped iff ANY candidate earlier in stable
-    descending score order has intersection-over-minimum above the
-    threshold, whether or not that one survives (detectors/mtcnn.py:273-309,
-    method='Min')."""
+    descending score order (within its group, when ``group_ids`` [..., K]
+    is given) has intersection-over-minimum above the threshold, whether or
+    not that one survives (detectors/mtcnn.py:273-309, method='Min')."""
     k = boxes.shape[-2]
     _, order = _sort_desc(_masked(scores, valid))
     ar = torch.arange(k, dtype=torch.int64, device=boxes.device).expand(order.shape)
@@ -101,6 +101,8 @@ def iom_chain_suppress(boxes, scores, valid, iom_thr, plus_one=True):
     iom = box_iou_matrix(boxes, boxes, plus_one=plus_one, mode="iom")
     earlier = rank[..., :, None] < rank[..., None, :]   # [j, i]: j earlier than i
     kills = (iom > iom_thr) & earlier & valid[..., :, None]
+    if group_ids is not None:
+        kills &= group_ids[..., :, None] == group_ids[..., None, :]
     return valid & ~torch.any(kills, dim=-2)
 
 

@@ -45,12 +45,19 @@ def inv_out(out_size=OUT_SIZE):
     return float(np.float32(1.0 / out_size))
 
 
-def assign_fpn_levels(boxes, num_levels=4):
+def assign_fpn_levels(boxes, num_levels=4, canonical=224.0, base_level=2):
     """FPN level index in [0, num_levels) of boxes [..., 4] (x1, y1, x2,
-    y2), as int64: the number of level edges that sqrt(w * h) reaches."""
+    y2), as int64: the number of level edges that sqrt(w * h) reaches.
+    Other ``canonical`` / ``base_level`` than the detector's take
+    floor(4 + log2(s / canonical)), clamped, in float32 (XLA's log2 may
+    round the other way within an ulp of an edge)."""
     ws = boxes[..., 2] - boxes[..., 0]
     hs = boxes[..., 3] - boxes[..., 1]
     s = torch.sqrt(ws * hs)
+    if (canonical, base_level) != (224.0, 2):
+        k = torch.floor(4.0 + torch.log2(torch.clamp(s, min=1e-6) / canonical))
+        k = torch.clamp(k, base_level, base_level + num_levels - 1)
+        return (k - base_level).to(torch.int64)
     lv = torch.zeros(s.shape, dtype=torch.int64, device=s.device)
     for edge in LEVEL_EDGES[:num_levels - 1]:
         lv += (s >= edge).to(torch.int64)

@@ -1,6 +1,7 @@
 """Detection pipeline: videos -> cropped face images on disk (counterpart of
-videotofaces_tpu/pipeline/detection.py, single process: one card, or the
-cards of the detector's ``mesh``).
+videotofaces_tpu/pipeline/detection.py: one card, or the cards of the
+detector's ``mesh``; in a multi-host job the final hash dedup is global,
+parallel/multihost.py).
 
 Behavioral contract (reference detection.py:32-162): per file, sample frames
 on the step schedule, batch them through the detector, filter/adjust/square
@@ -25,6 +26,7 @@ from ..hostio import (AsyncImageWriter, ParallelFrameSource,
                       PrefetchingFrameSource, decode_workers_default,
                       open_reader)
 from ..hostio.video import frame_schedule
+from ..parallel import multihost as MH
 from ..utils.image import resize_keep_ratio
 from ..utils.pbar import tqdm
 from ..utils.profiling import StageTimer, trace
@@ -83,13 +85,28 @@ def detect_faces(files, model, sampling, criteria, layout, hash_thr,
             names += n
             hashes += h
 
-        if dedup_on and names:
+        # multi-host jobs dedup GLOBALLY: gather every host's (hash, name)
+        # rows, compute identical keep decisions everywhere, apply local
+        # deletions only. Hosts with zero faces still join the gather.
+        n_hosts = MH.process_info()[1]
+        if dedup_on and (names or n_hosts > 1):
             with timer.stage("dedup:all-pairs", items=len(names)):
                 # explicit uint64: np.stack on Python ints straddling 2^63
                 # would promote to float64 and corrupt the low hash bits
                 arr = np.asarray(hashes, dtype=np.uint64)
-                _, names = remove_dupes_overall(arr, names, "hash", hash_thr, layout,
-                                                model.device)
+                if n_hosts > 1:
+                    g_arr, g_names = MH.allgather_rows(arr, names)
+                    if len(g_names):
+                        # one hash per name (a host without faces gets the
+                        # rows as one uint64 column)
+                        g_arr = g_arr.reshape(len(g_names))
+                        _, g_keep = remove_dupes_overall(g_arr, g_names, "hash",
+                                                         hash_thr, layout, model.device)
+                        local = set(names)
+                        names = [n for n in g_keep if n in local]
+                else:
+                    _, names = remove_dupes_overall(arr, names, "hash", hash_thr, layout,
+                                                    model.device)
 
     paths = [layout.face_path(fn) for fn in names]
     print()

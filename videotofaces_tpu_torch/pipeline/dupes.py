@@ -137,6 +137,14 @@ def _nearest_earlier(x, measure_type, device):
     return mins.cpu().numpy(), inds.cpu().numpy()
 
 
+def skip_missing(op, *paths):
+    """A file operation that is a no-op when its source is gone."""
+    try:
+        op(*paths)
+    except FileNotFoundError:
+        pass
+
+
 def remove_dupes_overall(x, filenames, measure_type, threshold, layout, device=None):
     """All-pairs dedup against earlier faces. ``x``: [N] packed uint64
     hashes or [N, D] embeddings; the cosine Gram, and the hash Gram when
@@ -153,19 +161,20 @@ def remove_dupes_overall(x, filenames, measure_type, threshold, layout, device=N
     goods = [fn for fn, d in zip(filenames, is_dup) if not d]
     x = np.asarray(x)[~is_dup]
 
+    # a multi-host job passes the union of every host's faces through here:
+    # files of other hosts are absent locally (or, on a shared out_dir,
+    # another host may move the same file first); the keep/drop decision is
+    # identical on every host, the file operation skips what is not there
     if not layout.save_dupes:
         for fn in dupes:
-            p = layout.face_path(osp.basename(fn))
-            if osp.isfile(p):
-                os.remove(p)
+            skip_missing(os.remove, layout.face_path(osp.basename(fn)))
     else:
         part, colname = ("2", "hash_diff") if measure_type == "hash" else ("3", "distance")
         dup_dir = layout.intermediate("dupes" + part)
         os.makedirs(dup_dir, exist_ok=True)
         for fn in dupes:
             base = osp.basename(fn)
-            if osp.isfile(layout.face_path(base)):
-                os.replace(layout.face_path(base), osp.join(dup_dir, base))
+            skip_missing(os.replace, layout.face_path(base), osp.join(dup_dir, base))
         with open(layout.intermediate("log_dupes%s.csv" % part), "w") as f:
             f.write("file_name,nearest_in_prev,%s,marked_as_duplicate\n" % colname)
             for i in range(1, len(filenames)):

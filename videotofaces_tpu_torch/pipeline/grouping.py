@@ -18,6 +18,10 @@ Device work (embeddings, cosine Gram matrices, K-means, scores) runs on the
 card, or on the CPU when the caller passes ``device="cpu"``; this module is
 the host orchestration: batching images to the encoder and distributing
 files into group folders. Stage timings are reported per run.
+In a multi-host job every host passes the gathered set (every host's
+faces) to ``cluster_faces`` / ``classify_faces``: the labels are identical
+everywhere, and a file that is not there (another host's, or one that a
+host sharing ``out_dir`` moved first) is skipped.
 """
 
 import os
@@ -36,6 +40,7 @@ from ..utils.image import crop_to_area
 from ..utils.pbar import tqdm
 from ..utils.profiling import StageTimer, trace
 from . import mesh_auto
+from .dupes import skip_missing
 
 _ENCODERS = ("facenet_vgg", "facenet_casia", "vit_b", "vit_l")
 
@@ -179,8 +184,7 @@ def classify_faces(paths, x, model, spec, out_dir):
     for c in classes:
         os.makedirs(osp.join(base, c), exist_ok=True)
     for p, lbl in zip(paths, assigned):
-        if osp.isfile(p):
-            os.replace(p, osp.join(base, classes[lbl], osp.basename(p)))
+        skip_missing(os.replace, p, osp.join(base, classes[lbl], osp.basename(p)))
 
     print("Grouped %u images into %u folders:" % (len(paths), len(classes)))
     for i, c in enumerate(classes):
@@ -228,14 +232,12 @@ def cluster_faces(paths, x, spec, out_dir, device=None):
         for j in range(k):
             os.makedirs(osp.join(base, sub, str(j)), exist_ok=True)
         for p, lbl in zip(paths, labels):
-            if osp.isfile(p):
-                shutil.copyfile(p, osp.join(base, sub, str(lbl), osp.basename(p)))
+            skip_missing(shutil.copyfile, p, osp.join(base, sub, str(lbl), osp.basename(p)))
         _print_group_sizes(sub, labels)
     print()
     timer.report()
     for p in paths:
-        if osp.isfile(p):
-            os.remove(p)
+        skip_missing(os.remove, p)
 
 
 def test_grouping(paths, refs, style, enc_model, device, out_dir, exclude_other,

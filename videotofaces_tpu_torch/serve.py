@@ -77,8 +77,8 @@ class FaceService:
     """
 
     def __init__(self, style="live", det_model="default", enc_model="default",
-                 criteria=None, max_batch=32, mesh="auto", device=None,
-                 det_kw=None, enc_kw=None, detector=None, encoder=None):
+                 criteria=None, max_batch=32, mesh="auto", det_kw=None, enc_kw=None,
+                 detector=None, encoder=None, *, device=None):
         from .pipeline.mesh_auto import resolve_mesh
 
         self.criteria = criteria or BoxCriteria()

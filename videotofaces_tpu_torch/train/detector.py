@@ -27,7 +27,7 @@ from .. import config
 from ..models import yolo as Y
 from ..ops.boxes import decode_boxes
 from ..utils.weights import yolo_to_jax
-from .optim import AdamW, leaves, run_epochs, run_step
+from .optim import AdamW, leaves, refuse_mesh, run_epochs, run_step
 
 
 # -- host-side target assignment (numpy, as in the JAX package) ---------------
@@ -261,14 +261,17 @@ def _fit(step, model, opt, data, pr, st, epochs, batch_size, seed, num_classes,
 
 
 def finetune_yolo_head(frames_u8, gt_boxes_list, epochs=5, batch_size=8, learning_rate=1e-4,
-                       max_side=608, num_classes=1, seed=0, params=None, pos_iou=0.5,
-                       neg_iou=0.4, box_weight=2.0, device=None):
+                       max_side=608, num_classes=1, mesh=None, seed=0, params=None,
+                       pos_iou=0.5, neg_iou=0.4, box_weight=2.0, *, device=None):
     """Head-only fine-tune: uint8 BGR frames [N, H, W, 3] + per-frame gt
     corner boxes (original pixel coordinates) -> (the whole tree in the JAX
     layout, numpy arrays, trunk untouched; history of per-epoch mean
     losses). ``params``: a JAX-layout tree (None: the converted checkpoint,
     or seeded weights with a note). The tree loads into
-    ``YoloDetector(params=)``. ``device``: None means the card."""
+    ``YoloDetector(params=)``. ``mesh``: the JAX loop's data mesh;
+    anything but None raises (``optim.refuse_mesh``). ``device``: None
+    means the card."""
+    refuse_mesh(mesh)
     device = config.resolve_device(device)
     model, data, pr, st = _setup(frames_u8, gt_boxes_list, max_side, num_classes, params,
                                  pos_iou, neg_iou, device)
@@ -280,11 +283,13 @@ def finetune_yolo_head(frames_u8, gt_boxes_list, epochs=5, batch_size=8, learnin
 
 
 def finetune_yolo_full(frames_u8, gt_boxes_list, epochs=5, batch_size=8, learning_rate=1e-4,
-                       trunk_scales=None, max_side=608, num_classes=1, seed=0, params=None,
-                       pos_iou=0.5, neg_iou=0.4, box_weight=2.0, device=None):
+                       trunk_scales=None, max_side=608, num_classes=1, mesh=None, seed=0,
+                       params=None, pos_iou=0.5, neg_iou=0.4, box_weight=2.0, *,
+                       device=None):
     """Full fine-tune with layerwise learning rates (``trunk_scales`` ->
     ``layerwise_tx``). Same data path and return contract as
     ``finetune_yolo_head``."""
+    refuse_mesh(mesh)
     device = config.resolve_device(device)
     model, data, pr, st = _setup(frames_u8, gt_boxes_list, max_side, num_classes, params,
                                  pos_iou, neg_iou, device)

@@ -120,6 +120,14 @@ def run_step(opt, loss_closure):
     return loss.detach(), aux
 
 
+def refuse_mesh(mesh):
+    """The fine-tune loops take the JAX loops' ``mesh`` slot; a sharded
+    loop (the global step over a data mesh) is not ported yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "data-parallel fine-tuning (mesh=) is not ported; see ROADMAP.md, item 11d")
+
+
 def run_epochs(n, epochs, batch_size, seed, run_batch):
     """The JAX fine-tune loops' schedule: each epoch takes
     ``np.random.default_rng(seed).permutation(n)`` (one generator over all

@@ -14,7 +14,7 @@ import torch
 
 from .. import config
 from ..utils.weights import facenet_from_jax, facenet_to_jax
-from .optim import AdamW, leaves, run_epochs, run_step
+from .optim import AdamW, leaves, refuse_mesh, run_epochs, run_step
 from .trainer import create_train_state  # noqa: F401 — one definition, shared
 
 
@@ -138,8 +138,8 @@ class MemoryBank:
 
 
 def finetune_facenet(images, labels, epochs=5, batch_size=32, margin=0.2,
-                     learning_rate=1e-5, casia=False, seed=0, params=None, model=None,
-                     bank_size=0, device=None):
+                     learning_rate=1e-5, casia=False, mesh=None, seed=0, params=None,
+                     model=None, bank_size=0, *, device=None):
     """Fine-tune FaceNet (InceptionResnetV1) on (images [N, H, W, 3] uint8
     BGR, 160 px for FaceNet, labels [N] int): BGR -> RGB and (x - 127.5) /
     128, a ``default_rng(seed)`` shuffle per epoch, the ragged tail batch
@@ -152,13 +152,15 @@ def finetune_facenet(images, labels, epochs=5, batch_size=32, margin=0.2,
     ``model``: an ``nn.Module`` to train in FaceNet's place (NCHW float
     input -> [B, D] embeddings). ``bank_size > 0`` adds the memory bank's
     negatives (``MemoryBank`` of that many recent embeddings).
-    ``device``: None means the card.
+    ``mesh``: the JAX loop's data mesh; anything but None raises
+    (``optim.refuse_mesh``). ``device``: None means the card.
 
     Returns (the trained tree in the JAX layout, numpy arrays; history of
     per-epoch mean losses)."""
     from ..models import facenet as FN
     from ..models.wrappers import _resolve_checkpoint
 
+    refuse_mesh(mesh)
     device = config.resolve_device(device)
     if model is None:
         if params is None:

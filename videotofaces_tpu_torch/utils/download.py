@@ -4,9 +4,10 @@
 Component parity with utils/download.py:10-40 in the reference: 1MB chunked
 streaming with a progress bar, and the Drive "can't scan for viruses" confirm
 page dance. ``fetch_torch_checkpoint`` pulls an original torch checkpoint
-when the environment has network access; tools/convert_weights.py turns it
-into the .npz the port's wrappers load from ``weights/``. ``requests`` is
-imported only when a download starts.
+when the environment has network access; ``python -m
+videotofaces_tpu_torch.convert_weights`` turns it into the .npz the port's
+wrappers load from ``weights/``. ``requests`` is imported only when a
+download starts.
 """
 
 import os.path as osp
@@ -49,7 +50,7 @@ def url_download(url, dst, gdrive=False, chunk_size=1024 * 1024):
 
 
 # Original torch checkpoint sources (README.md:91-136 of the reference);
-# convert with tools/convert_weights.py after downloading.
+# convert with python -m videotofaces_tpu_torch.convert_weights after downloading.
 TORCH_CHECKPOINT_URLS = {
     "mtcnn_joined": "https://drive.google.com/uc?id=1qHW1xoTvuqlUBBhPx1ZLpzUXrWHfW1jN",
     "yolov3_wider": "https://drive.google.com/uc?id=1pjg1_IeAuzgRzZiY92r71uzd_amfcegu",

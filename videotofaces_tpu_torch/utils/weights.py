@@ -1,8 +1,17 @@
-"""Checkpoint loading and the parameter bridge from the JAX layout.
+"""Checkpoint conversion, loading, and the parameter bridge from the JAX layout.
 
 Converted checkpoints live in ``<repo>/weights/*.npz`` as flat "a/b/c" keys in
-the JAX package's layout (HWIO conv kernels, [in, out] dense kernels — see
-tools/convert_weights.py). The port reads the same files and turns the nested
+the JAX package's layout (HWIO conv kernels, [in, out] dense kernels). They
+are made from the reference's torch checkpoints by the port's converter
+(``python -m videotofaces_tpu_torch.convert_weights``), which consumes the
+checkpoint's tensors IN ORDER against each model's ``torch_spec``: an
+ordered list of typed elements (conv / bn / linear / raw param) with the
+JAX package's tree paths, in the order the reference registers its
+tensors; ``convert_state`` applies the layout transforms (OIHW -> HWIO
+kernels, [out, in] -> [in, out] matrices) and skips scalar
+``num_batches_tracked`` entries. The spec elements and ``convert_state``
+are a copy of the JAX package's (utils/weights.py), so both converters
+write the same npz. The port reads the same files and turns the nested
 numpy tree into ``state_dict``s for its ``nn.Module``s with ``mtcnn_from_jax``,
 ``facenet_from_jax``, ``frcnn_from_jax``, ``vit_from_jax``, ``yolo_from_jax``
 and ``classifier_from_jax``. ``state_dict_to_jax`` (as ``yolo_to_jax``,
@@ -74,6 +83,130 @@ def weights_dir():
     d = osp.join(home, "weights")
     os.makedirs(d, exist_ok=True)
     return d
+
+
+# -- spec elements (the JAX package's utils/weights.py) -------------------------
+
+
+def conv(path, bias=False):
+    """torch Conv2d: weight [O, I, kh, kw] (+ bias [O]) -> kernel [kh, kw, I, O]."""
+    return ("conv", path, bias)
+
+
+def bn(path):
+    """torch BatchNorm: weight, bias, running_mean, running_var
+    (+ optional scalar num_batches_tracked, skipped)."""
+    return ("bn", path)
+
+
+def linear(path, bias=True):
+    """torch Linear: weight [out, in] (+ bias) -> kernel [in, out]."""
+    return ("linear", path, bias)
+
+
+def linear_reshaped(path, src_shape, perm, bias=True):
+    """torch Linear whose flattened input ordering differs from the JAX
+    layout's: weight [out, prod(src_shape)] is unflattened to [out,
+    *src_shape], the input dims permuted by ``perm`` (e.g. CHW -> HWC),
+    re-flattened, then transposed. Used for FC layers that consume
+    flattened conv maps (NCHW vs NHWC)."""
+    return ("linear_reshaped", path, tuple(src_shape), tuple(perm), bias)
+
+
+def ln(path):
+    """torch LayerNorm: weight, bias -> scale, bias."""
+    return ("ln", path)
+
+
+def param(path, transform=None):
+    """A raw tensor copied as-is (or via ``transform``)."""
+    return ("param", path, transform)
+
+
+def convunit(path, bias=False, has_bn=True):
+    """A ConvUnit of the JAX layout: conv (+ bias) then optional BN."""
+    els = [conv(f"{path}/conv", bias)]
+    if has_bn:
+        els.append(bn(f"{path}/bn"))
+    return els
+
+
+class _Source:
+    """Ordered tensor stream with scalar-skip (num_batches_tracked etc.)."""
+
+    def __init__(self, tensors):
+        self.tensors = list(tensors)
+        self.i = 0
+
+    def next(self):
+        while self.i < len(self.tensors) and np.asarray(self.tensors[self.i]).ndim == 0:
+            self.i += 1  # skip num_batches_tracked-style scalars
+        if self.i >= len(self.tensors):
+            raise ValueError("source checkpoint ran out of tensors")
+        t = np.asarray(self.tensors[self.i], dtype=np.float32)
+        self.i += 1
+        return t
+
+    def done(self):
+        while self.i < len(self.tensors) and np.asarray(self.tensors[self.i]).ndim == 0:
+            self.i += 1
+        return self.i >= len(self.tensors)
+
+
+def convert_state(spec, tensors, strict=True):
+    """Ordered source tensors + model spec -> flat {path: array} dict."""
+    src = _Source(tensors)
+    flat = {}
+    for el in spec:
+        kind = el[0]
+        if kind == "conv":
+            _, path, has_bias = el
+            w = src.next()
+            flat[f"{path}/kernel"] = np.transpose(w, (2, 3, 1, 0))
+            if has_bias:
+                flat[f"{path}/bias"] = src.next()
+        elif kind == "bn":
+            _, path = el
+            flat[f"{path}/scale"] = src.next()
+            flat[f"{path}/bias"] = src.next()
+            flat[f"{path}/mean"] = src.next()
+            flat[f"{path}/var"] = src.next()
+        elif kind == "linear":
+            _, path, has_bias = el
+            w = src.next()
+            flat[f"{path}/kernel"] = np.ascontiguousarray(w.T)
+            if has_bias:
+                flat[f"{path}/bias"] = src.next()
+        elif kind == "linear_reshaped":
+            _, path, src_shape, perm, has_bias = el
+            w = src.next()
+            out = w.shape[0]
+            w = w.reshape((out,) + src_shape)
+            w = np.transpose(w, (0,) + tuple(p + 1 for p in perm))
+            flat[f"{path}/kernel"] = np.ascontiguousarray(w.reshape(out, -1).T)
+            if has_bias:
+                flat[f"{path}/bias"] = src.next()
+        elif kind == "ln":
+            _, path = el
+            flat[f"{path}/scale"] = src.next()
+            flat[f"{path}/bias"] = src.next()
+        elif kind == "param":
+            _, path, transform = el
+            t = src.next()
+            flat[path] = transform(t) if transform else t
+        else:
+            raise ValueError(f"unknown spec element {kind!r}")
+    if strict and not src.done():
+        raise ValueError(f"{len(tensors) - src.i} unconsumed source tensors")
+    return flat
+
+
+def save_npz(path, flat):
+    os.makedirs(osp.dirname(osp.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+
+
+# -- the bridge from the JAX layout to the port's modules --------------------------
 
 
 def jax_to_state_dict(tree):
