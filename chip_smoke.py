@@ -124,12 +124,28 @@ any failed, printing no result line):
    x. the same with a gloo process group and the anime defaults (R-CNN
       bf16 + ViT ``device_resize``: K4 and K5 on each host) in
       ``mode="full"``, then ``mode="grouping"`` by the same hosts over one
-      shared folder of the first run's faces.
+      shared folder of the first run's faces;
+   y. training under a mesh (``train/``, parallel/sharding.py): on a
+      repeated-device mesh of cuda:0, ``make_sharded_train_step`` for the
+      ViT-B16 classifier (128 px, batch 64) on ``(data 2 x model 2)``
+      (tensor parallelism inside each block), and on 2 data shards
+      ``make_sharded_full_step`` / ``make_sharded_head_step`` (YOLOv3,
+      batch 8 on the 352 x 608 canvas of 1080p frames) and
+      ``make_sharded_triplet_step`` / ``make_sharded_xbm_step`` (FaceNet,
+      160 px, batch 32, bank 256): one step of each in "highest" held to
+      the same step with ``mesh=None`` on the card (the loss, the aux, the
+      returned embeddings, every updated leaf), then ms per step sharded
+      and single in "default" and the peak memory; the three fine-tune
+      loops with ``mesh=`` for one epoch on 16 frames or crops (finite
+      histories); with two cards or more, the steps again on a (2 x 1) and
+      a (1 x 2) mesh over cuda:0 + cuda:1 (the latter tensor parallelism
+      across cards), else it prints why that part was skipped.
 
 The YOLO path (4l-4n, 4q) runs no hand-written kernel: its convolutions are
 cuDNN's and its resize the matrix products of ``ops/resize.py``; its
-launch counts are printed all the same. Training (4r-4t) reaches no kernel
-either: the JAX package's training reaches no ``pl.pallas_call``.
+launch counts are printed all the same. Training (4r-4t, 4y) reaches no
+kernel either: the JAX package's training reaches no ``pl.pallas_call``, so
+none of K1-K5 launches there (4y reads the counts and requires 0).
 
 Its last two lines are a JSON object listing every kernel with its launches,
 error and times, and ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -1926,6 +1942,243 @@ def other_device_calls(frames):
         "the detector on cuda:0 (%s detections)" % [len(d) for d in got])
 
 
+# -- training under a mesh (4y) ---------------------------------------------------
+# sharded step against the same step with mesh=None on the mesh's first
+# device, in precision "highest": the loss rtol 1e-5 (the detector's 1e-4,
+# tests/test_train_detector.py:188); the aux within the loss's rtol; the
+# returned embeddings rtol 1e-4 (tests/test_train_triplet.py:194) and atol
+# 1e-5 of their unit norm (FaceNet's 130 layers at batch 16 and 32 take
+# other cuDNN algorithms: 7 of 16,384 values 1.7e-6 apart on the card,
+# above the tiny CPU encoder's 1e-6); every updated leaf by
+# ``check_params`` (AdamW's first step is lr x sign(g) where |g| is well
+# above rounding, so the gradients' rounding does not reach it; within 2 x
+# lr where rounding decides the sign); every leaf the step does not train
+# equal
+SHARDED_LOSS_RTOL = {"vit": 1e-5, "yolo": 1e-4, "facenet": 1e-5}
+
+
+def sharded_step_cases(small=False):
+    """The five sharded steps of 4y, each a dict: ``build()`` -> a fresh
+    module on the host; ``opt(model)``; ``single(model, opt, *batch)``;
+    ``make(mesh, model, opt)`` -> (step, model, opt); ``batch`` (host
+    tensors); ``lr``, ``scale_of``, ``family``, ``label``; ``tp``: the
+    classifier, the one step that reads the ``"model"`` axis. Full width
+    (ViT-B16 at 128 px and batch 64; YOLOv3 batch 8 on the 352 x 608 canvas
+    of 1080p frames; FaceNet 160 px, batch 32, bank 256), or ``small`` for
+    the ``cuda`` tests (img 32 dim 128 depth 2, 64 px, 75 px, batch 8)."""
+    import torch
+
+    from videotofaces_tpu_torch.models import facenet as FN
+    from videotofaces_tpu_torch.models import yolo as Y
+    from videotofaces_tpu_torch.train import detector as TD
+    from videotofaces_tpu_torch.train import trainer as TR
+    from videotofaces_tpu_torch.train import triplet as TT
+    from videotofaces_tpu_torch.train.optim import AdamW, leaves
+
+    cases = []
+    arch = (dict(img_size=32, patch_size=16, dim=128, depth=2) if small else {})
+    classes, b = (5, 8) if small else (64, 64)
+    sd = TR.ViTClassifier.seeded(classes, seed=0, **arch).state_dict()
+    gen = torch.Generator().manual_seed(5)
+    px = 32 if small else 128
+    x = torch.randn((b, 3, px, px), generator=gen)
+    y = torch.randint(0, classes, (b,), generator=gen)
+
+    def vit():
+        model = TR.ViTClassifier(classes, **arch)
+        model.load_state_dict(sd)
+        return model
+
+    cases.append(dict(label="ViTClassifier %s, batch %d, make_sharded_train_step"
+                      % ("img 32 dim 128 depth 2" if small else "B16 128 px", b),
+                      family="vit", tp=True, build=vit,
+                      opt=lambda m: TR.create_train_state(m), single=TR.train_step,
+                      make=TR.make_sharded_train_step, batch=[x, y], lr=1e-4,
+                      scale_of=lambda k: 1.0))
+
+    params = yolo_params(0)
+    if small:
+        frames, gts = small_faces(5, 4)
+        canvas_hw = (64, 64)
+    else:
+        frames, gts = face_frames(31)
+        frames, gts = frames[:8], gts[:8]
+        canvas_hw = Y.canvas_shape(*Y.resized_shape(H, W, 608))
+    priors, strides = Y.flat_priors_and_strides(canvas_hw)
+    nh, nw = (64, 64) if small else Y.resized_shape(H, W, 608)
+    canvas, obj_t, box_t = TD._prepare_yolo_data(frames, gts, priors, 0.5, 0.4, nh, nw,
+                                                 *canvas_hw)
+    ybatch = [torch.from_numpy(canvas).permute(0, 3, 1, 2).contiguous(),
+              torch.from_numpy(obj_t), torch.from_numpy(box_t)]
+    pr, st = torch.from_numpy(priors), torch.from_numpy(strides)
+    layer = {"backbone": 0.1, "neck": 0.3, "head": 1.0}
+    for kind in ("full", "head"):
+        full = kind == "full"
+        cases.append(dict(
+            label="YOLOv3 %s step, batch %d on %dx%d, make_sharded_%s_step"
+            % (kind, len(frames), canvas_hw[0], canvas_hw[1], kind),
+            family="yolo", tp=False, build=lambda: Y.YOLOv3.from_jax(params),
+            opt=((lambda m: TD.layerwise_tx(m, 1e-4)) if full
+                 else (lambda m: TD.bn_stats_frozen(leaves(m.head), 1e-4))),
+            single=lambda m, o, *bt, f=(TD.train_step_full if full else TD.train_step):
+                f(m, o, *bt, pr.to(bt[0].device), st.to(bt[0].device)),
+            make=lambda mesh, m, o, mk=(TD.make_sharded_full_step if full
+                                        else TD.make_sharded_head_step):
+                mk(mesh, o, m, priors, strides),
+            batch=ybatch, lr=1e-4,
+            scale_of=((lambda k: 0.0 if TD._is_bn_stat(k) else layer[k.split(".")[0]]) if full
+                      else (lambda k: 0.0 if TD._is_bn_stat(k) else 1.0))))
+
+    fpx, fb = (75, 8) if small else (160, 32)
+    tree = facenet_params(3)
+    crops, labels = identity_crops(8, fb // 4, 4, fpx)
+    fx = FN.preprocess_uint8(torch.from_numpy(np.ascontiguousarray(crops[..., ::-1])))
+    fx = fx.permute(0, 3, 1, 2).contiguous()
+    tree = calibrated_head_bn(tree, fx)
+    fy = torch.from_numpy(labels)
+    rng = np.random.default_rng(9)
+    bank_emb = rng.normal(size=(256, 512)).astype(np.float32)
+    bank_emb /= np.linalg.norm(bank_emb, axis=1, keepdims=True)
+    bank = [torch.from_numpy(bank_emb), torch.from_numpy(rng.integers(0, 64, 256).astype(np.int32)),
+            torch.from_numpy(np.arange(256) < 200)]
+    for xbm in (False, True):
+        cases.append(dict(
+            label="FaceNet %d px, batch %d%s, make_sharded_%s_step"
+            % (fpx, fb, ", bank 256" if xbm else "", "xbm" if xbm else "triplet"),
+            family="facenet", tp=False, build=lambda: FN.InceptionResnetV1.from_jax(tree),
+            opt=lambda m: AdamW(leaves(m), 1e-5),
+            single=TT.train_step_xbm if xbm else TT.train_step,
+            make=TT.make_sharded_xbm_step if xbm else TT.make_sharded_triplet_step,
+            batch=[fx, fy] + (bank if xbm else []), lr=1e-5, scale_of=lambda k: 1.0))
+    return cases
+
+
+def _aux_close(got, want, rtol, what):
+    """The step's second output: an accuracy or active fraction (a tensor),
+    or the detector's loss parts (a dict)."""
+    pairs = got.items() if isinstance(got, dict) else [("aux", got)]
+    for k, g in pairs:
+        w = want[k] if isinstance(want, dict) else want
+        np.testing.assert_allclose(float(g), float(w), rtol=rtol, err_msg="%s %s" % (what, k))
+
+
+def _timed_steps(fn, dev, iters=5):
+    """ms per step (each ending in a sync) after one warm-up step, and the
+    peak memory of the run on ``dev`` above what was resident before it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(dev)
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, torch.cuda.max_memory_allocated(dev) - resident, resident
+
+
+def hold_sharded_step(case, mesh):
+    """One case of 4y on ``mesh``: the sharded step and the single step in
+    "highest" from the same weights, held as the block comment says; then
+    each timed in "default" (ms per step, min and mean of 5 after a
+    warm-up, and peak memory above the resident). Returns the log line."""
+    import torch
+
+    from videotofaces_tpu_torch import config
+    from videotofaces_tpu_torch.train.optim import leaves
+
+    dev0 = mesh.shards[0]
+    rtol = SHARDED_LOSS_RTOL[case["family"]]
+    batch = [t.to(dev0) for t in case["batch"]]
+    with config.precision_scope("highest"):
+        single = case["build"]().to(dev0)
+        before = {k: v.detach().cpu().numpy().copy() for k, v in single.state_dict().items()}
+        s_opt = case["opt"](single)
+        out1 = case["single"](single, s_opt, *batch)
+        grads = {k: t.grad.cpu().numpy() for k, t in leaves(single) if t.grad is not None}
+        model = case["build"]()
+        step, model, opt = case["make"](mesh, model, case["opt"](model))
+        out2 = step(*case["batch"])
+    np.testing.assert_allclose(float(out2[0]), float(out1[0]), rtol=rtol)
+    _aux_close(out2[1], out1[1], rtol, case["label"])
+    if len(out1) > 2:
+        np.testing.assert_allclose(out2[2].cpu().numpy(), out1[2].cpu().numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    if s_opt.clip_norm is not None:
+        np.testing.assert_allclose(float(opt.grad_norm), float(s_opt.grad_norm), rtol=1e-4)
+    got = {k: v.detach().cpu().numpy() for k, v in step.state_dict().items()}
+    want = {k: v.detach().cpu().numpy() for k, v in single.state_dict().items()}
+    for k in set(want) - set(grads):          # leaves the step does not train
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    worst = check_params({k: got[k] for k in grads}, {k: want[k] for k in grads}, before,
+                         grads, case["lr"], case["scale_of"])
+    with config.precision_scope("default"):
+        t_single, peak_single, res_single = _timed_steps(
+            lambda: case["single"](single, s_opt, *batch), dev0)
+        del single, s_opt
+        torch.cuda.empty_cache()
+        t_sharded, peak_sharded, res_sharded = _timed_steps(lambda: step(*batch), dev0)
+    return ("   %s on %r: 'highest' loss %.6f, sharded = single (worst parameter error %.3f "
+            "of its bound)\n      'default' ms per step: sharded min %.2f / mean %.2f, single "
+            "min %.2f / mean %.2f (%.2fx); peak above resident: sharded %.2f GiB (resident "
+            "%.2f), single %.2f GiB (resident %.2f)"
+            % (case["label"], mesh, float(out1[0]), worst, min(t_sharded), np.mean(t_sharded),
+               min(t_single), np.mean(t_single), min(t_sharded) / min(t_single),
+               peak_sharded / 2 ** 30, res_sharded / 2 ** 30, peak_single / 2 ** 30,
+               res_single / 2 ** 30))
+
+
+def train_sharded(devices, grids, small=False, loops=True):
+    """4y: the five sharded steps (``sharded_step_cases``) on
+    ``make_mesh(n_data, n_model, devices)`` for each (n_data, n_model) of
+    ``grids`` — the classifier on every grid, the data-parallel makers on
+    the grids whose ``"model"`` size is 1 — each held to its single step
+    (``hold_sharded_step``); then, with ``loops``, the three fine-tune loops
+    with ``mesh=`` for one epoch on 16 frames or crops (finite histories).
+    No hand-written kernel launches."""
+    import torch
+
+    from videotofaces_tpu_torch.parallel import make_mesh
+
+    reset_launches()
+    cases = sharded_step_cases(small)
+    for n_data, n_model in grids:
+        mesh = make_mesh(n_data, n_model, devices)
+        for case in cases:
+            if n_model > 1 and not case["tp"]:
+                continue
+            log(hold_sharded_step(case, mesh))
+            torch.cuda.empty_cache()
+    if loops:
+        from videotofaces_tpu_torch.train import detector as TD
+        from videotofaces_tpu_torch.train import triplet as TT
+
+        mesh = make_mesh(devices=make_mesh(*grids[0], devices).shards)
+        frames, gts = small_faces(5, 16) if small else face_frames(31)
+        side = 64 if small else 608
+        crops, labels = identity_crops(8, 4, 4, 75 if small else 160)
+        for name, run in (
+                ("finetune_yolo_full", lambda: TD.finetune_yolo_full(
+                    frames, gts, epochs=1, max_side=side, params=yolo_params(0), mesh=mesh)),
+                ("finetune_yolo_head", lambda: TD.finetune_yolo_head(
+                    frames, gts, epochs=1, max_side=side, params=yolo_params(0), mesh=mesh)),
+                ("finetune_facenet", lambda: TT.finetune_facenet(
+                    crops, labels, epochs=1, batch_size=8, params=facenet_params(3),
+                    bank_size=256, mesh=mesh))):
+            t0 = time.perf_counter()
+            _, hist = run()
+            log("   %s(mesh=%r), one epoch on 16 %s: %.2f s, history %s"
+                % (name, mesh, "crops" if name == "finetune_facenet" else "frames",
+                   time.perf_counter() - t0, hist))
+            assert len(hist) == 1 and np.isfinite(hist).all(), (name, hist)
+    launched = read_launches()
+    log("   hand-written kernel launches during training: %s" % launched)
+    assert not any(launched.values()), launched
+
+
 # -- multi-host jobs (4w, 4x): host processes started from this script ---------
 
 MH_TIMEOUT = 600   # seconds a host process may take
@@ -3019,6 +3272,17 @@ def main():
     with phase("4x. two hosts on cuda:0, gloo process group: the anime defaults, "
                "mode='full' then mode='grouping' on a shared folder, vs one process"):
         multihost_anime(dev)
+
+    with phase("4y. training under a mesh on cuda:0: ViTClassifier B16 (batch 64) on a "
+               "(data 2 x model 2) mesh, YOLOv3 full / head (batch 8, 352x608) and FaceNet "
+               "triplet / bank (160 px, batch 32) on 2 data shards, each vs mesh=None; the "
+               "three loops with mesh="):
+        train_sharded([dev] * 4, [(2, 2), (2, 1)])
+        if torch.cuda.device_count() < 2:
+            log("   two cards: skipped: this host has %d CUDA device(s); the (2 x 1) and "
+                "(1 x 2) meshes over cuda:0 + cuda:1 need two" % torch.cuda.device_count())
+        else:
+            train_sharded(["cuda:0", "cuda:1"], [(2, 1), (1, 2)], loops=False)
 
     if failures:
         print("chip_smoke: %d phase(s) failed:\n  %s" % (len(failures),

@@ -617,6 +617,25 @@ def test_sharded_wrappers_and_ops_equal_one_device(devices):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("devices,grids", [(("cuda:0",) * 4, ((2, 2), (2, 1))),
+                                           (("cuda:0", "cuda:1"), ((2, 1), (1, 2)))],
+                         ids=["one_card", "two_cards"])
+def test_sharded_training_steps_equal_one_device(devices, grids):
+    """``chip_smoke.train_sharded`` (phase 4y) at a small size: the
+    classifier's step (img 32, dim 128, depth 2, batch 8) on each grid, the
+    YOLOv3 full / head steps (64 px, batch 4) and the FaceNet triplet /
+    bank steps (75 px, batch 8) on the ``"model"``-size-1 grids, each held
+    in "highest" to the same step with ``mesh=None`` on the first card
+    (loss, aux, embeddings, every updated leaf, at the tolerances stated
+    in chip_smoke.py); the three loops with ``mesh=`` on one card; no
+    hand-written kernel launched."""
+    _need_cards(len(set(devices)))
+    import chip_smoke as CS
+
+    CS.train_sharded(list(devices), list(grids), small=True, loops=len(set(devices)) == 1)
+
+
+@pytest.mark.cuda
 def test_kernels_follow_the_tensors_device():
     """Every kernel on cuda:1 called while the thread's current device is
     cuda:0 equals its plain version, and a detector on cuda:1 equals the

@@ -95,7 +95,8 @@ from videotofaces_tpu_torch.pipeline.mesh_auto import default_mesh as auto_defau
 from videotofaces_tpu_torch import convert_weights
 names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + ".")]
 assert names == ["videotofaces_tpu_torch.parallel.mesh",
-                 "videotofaces_tpu_torch.parallel.multihost"], names
+                 "videotofaces_tpu_torch.parallel.multihost",
+                 "videotofaces_tpu_torch.parallel.sharding"], names
 assert default_mesh is auto_default_mesh and default_mesh() is None
 assert make_mesh(devices=["cpu"] * 2).shape["data"] == 2
 assert not hasattr(P, "allgather_rows")    # imported by name, as in the JAX package
@@ -111,8 +112,8 @@ print("OK")
 
 
 def test_parallel_package_imports_with_jax_blocked():
-    """The multi-device modules (``parallel/`` with ``mesh.py`` and
-    ``multihost.py``, ``pipeline/mesh_auto.py``), which stand in for the JAX
+    """The multi-device modules (``parallel/`` with ``mesh.py``,
+    ``multihost.py`` and ``sharding.py``, ``pipeline/mesh_auto.py``), which stand in for the JAX
     package's ``parallel/``, the checkpoint converter and the multi-host
     test driver import no JAX and nothing of the JAX package; ``make_mesh``
     and ``default_mesh`` are exported from ``parallel``, ``multihost`` is

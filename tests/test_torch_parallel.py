@@ -91,8 +91,9 @@ def test_make_mesh_and_split_rows():
     assert [b.tolist() for b in blocks] == [[0, 1, 2], [3, 4], [5, 6]]
     assert [len(b) for b in split_rows(np.zeros((6, 2)), mesh)] == [2, 2, 2]
     assert make_mesh(n_data=2, devices=["cpu"] * 4).shape["data"] == 2
-    with pytest.raises(NotImplementedError, match="11c"):
-        make_mesh(n_model=2, devices=["cpu"] * 4)
+    grid = make_mesh(n_model=2, devices=["cpu"] * 4)
+    assert grid.shape == {"data": 2, "model": 2} and grid.devices.size == 4
+    assert grid.devices.shape == (2, 2) and len(grid.shards) == 2
     with pytest.raises(ValueError):
         make_mesh(n_data=5, devices=["cpu"] * 4)
     with pytest.raises(ValueError):

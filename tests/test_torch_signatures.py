@@ -2,8 +2,8 @@
 every parameter of the JAX callable comes first, in order, with the same
 name, kind and default; what only the port has (``device``) comes after
 them, keyword-only on the callables whose ``device`` once sat in a JAX
-slot. A ``mesh`` on the fine-tune loops is refused until data-parallel
-training is ported."""
+slot. The fine-tune loops take a ``mesh`` at the JAX slot and run
+sharded over it."""
 
 import importlib
 import inspect
@@ -21,15 +21,21 @@ MODULES = ("api", "serve", "specs", "prep", "config", "models.wrappers",
            "pipeline.boxfilter", "pipeline.mesh_auto", "parallel.mesh",
            "parallel.multihost", "ops.anchors", "ops.boxes", "ops.cluster_scores",
            "ops.distances", "ops.kmeans", "ops.nms", "ops.resize", "ops.roi_align",
-           "train.detector", "train.triplet", "utils.weights",
-           "utils.gallery", "utils.download", "utils.image")
+           "parallel.sharding", "train.detector", "train.triplet", "train.trainer",
+           "utils.weights", "utils.gallery", "utils.download", "utils.image",
+           "utils.profiling")
 # functional JAX steps (params, opt_state, optax transforms) whose port
-# counterparts take an nn.Module and an optimizer instead; train/trainer.py
-# holds nothing else (its ViTClassifier is a flax module there)
+# counterparts take an nn.Module and an optimizer instead; so do the sharded
+# step makers, whose params / opt_state / tx slots the module and the
+# optimizer fill (the ViTClassifier is a flax module there)
 FUNCTIONAL = {"train.detector": ("detection_loss", "detection_loss_full", "train_step",
-                                 "train_step_full", "bn_stats_frozen", "layerwise_tx"),
+                                 "train_step_full", "bn_stats_frozen", "layerwise_tx",
+                                 "make_sharded_head_step", "make_sharded_full_step"),
               "train.triplet": ("triplet_loss", "triplet_loss_xbm", "train_step",
-                                "train_step_xbm")}
+                                "train_step_xbm", "make_sharded_triplet_step",
+                                "make_sharded_xbm_step"),
+              "train.trainer": ("ViTClassifier", "create_train_state", "loss_fn", "train_step",
+                                "make_sharded_train_step")}
 # callables whose ``device`` took a JAX slot before: keyword-only now
 KW_DEVICE = {("serve", "FaceService"), ("ops.kmeans", "kmeans_fit"),
              ("ops.cluster_scores", "silhouette_score"),
@@ -40,6 +46,8 @@ KW_DEVICE = {("serve", "FaceService"), ("ops.kmeans", "kmeans_fit"),
 def _same_default(a, b):
     if a is P.empty or b is P.empty:
         return a is b
+    if inspect.isfunction(a) and inspect.isfunction(b):
+        return a.__name__ == b.__name__        # a rule function of each package
     if type(a).__module__.startswith(("jax", "numpy")) or \
             type(b).__module__.startswith("torch"):
         return str(np.dtype(a)) == str(b).replace("torch.", "")   # dtype defaults
@@ -145,12 +153,28 @@ def test_jax_positional_calls():
 
 @pytest.mark.parametrize("loop", ["finetune_facenet", "finetune_yolo_head",
                                   "finetune_yolo_full"])
-def test_finetune_loops_refuse_a_mesh(loop):
+def test_finetune_loops_accept_a_mesh(loop):
+    """The JAX slot ``mesh`` runs the loop sharded (its results are held to
+    the JAX loops in tests/test_torch_train_sharded*.py); a mesh beside a
+    device, or on a device that does not exist, raises."""
     from videotofaces_tpu_torch.parallel import make_mesh
     from videotofaces_tpu_torch.train import detector, triplet
 
     fn = getattr(triplet if loop == "finetune_facenet" else detector, loop)
     data = (np.zeros((4, 16, 16, 3), np.uint8),
             [0, 0, 1, 1] if loop == "finetune_facenet" else [np.zeros((0, 4))] * 4)
-    with pytest.raises(NotImplementedError, match="item 11d"):
-        fn(*data, mesh=make_mesh(devices=["cpu"] * 2), device="cpu")
+    kw = dict(epochs=1, batch_size=3)
+    if loop == "finetune_facenet":
+        from torch import nn
+
+        kw["model"] = nn.Sequential(nn.Conv2d(3, 4, 3), nn.Flatten(2), nn.AdaptiveAvgPool1d(1),
+                                    nn.Flatten())
+    else:
+        kw["max_side"] = 32
+    mesh = make_mesh(devices=["cpu"] * 2)
+    tree, hist = fn(*data, mesh=mesh, **kw)
+    assert len(hist) == 1 and np.isfinite(hist).all() and tree
+    with pytest.raises(ValueError, match="not both"):
+        fn(*data, mesh=mesh, device="cpu", **kw)
+    with pytest.raises((RuntimeError, ValueError), match="CUDA device"):
+        fn(*data, mesh=make_mesh(devices=["cuda:7"]), **kw)

@@ -1,4 +1,4 @@
-"""ResNet-50 backbone returning the C2..C5 feature maps (counterpart of
+"""ResNet-50 (and -152) backbone returning the C2..C5 feature maps (counterpart of
 videotofaces_tpu/models/resnet.py), NCHW.
 
 Architecture parity target: backbones/resnet.py:12-55 of the reference
@@ -58,6 +58,10 @@ class ResNet(nn.Module):
 
 def resnet50(bn_eps=1e-5):
     return ResNet((3, 4, 6, 3), bn_eps)
+
+
+def resnet152(bn_eps=1e-5):
+    return ResNet((3, 8, 36, 3), bn_eps)
 
 
 def torch_spec(block_counts=(3, 4, 6, 3), prefix=""):

@@ -104,7 +104,7 @@ class _Replicas:
             raise ValueError("pass device= or mesh=, not both (got %r and %r)"
                              % (device, mesh))
         self.mesh = mesh
-        self.devices = (tuple(mesh.devices) if mesh is not None
+        self.devices = (mesh.shards if mesh is not None
                         else (config.resolve_device(device),))
         self.device = self.devices[0]
         distinct = mesh.distinct if mesh is not None else self.devices

@@ -8,3 +8,14 @@ RoIAlign.
 Dynamic-size results (filtering, NMS, selection) are fixed-capacity padded
 buffers plus validity masks, as in the JAX package.
 """
+
+from .boxes import (  # noqa: F401
+    decode_boxes,
+    convert_to_cwh,
+    clamp_to_canvas,
+    scale_boxes,
+    box_iou_matrix,
+    small_boxes_mask,
+)
+from .anchors import make_anchors, get_priors  # noqa: F401
+from .nms import nms_keep_mask, batched_nms_topk, iom_chain_suppress  # noqa: F401

@@ -52,6 +52,14 @@ def small_boxes_mask(boxes, min_size=0.0):
     return (ws > min_size) & (hs > min_size)
 
 
+def scale_boxes(boxes, target_sizes_hw, current_sizes_hw):
+    """Rescale boxes [..., 4] from the resized canvas back to the original
+    image: sizes [..., 2] (h, w) aligned with the boxes' leading dims
+    (operations/bbox.py:63-67)."""
+    sxy = (target_sizes_hw / current_sizes_hw).flip(-1)      # (sx, sy)
+    return boxes * torch.cat([sxy, sxy], dim=-1)
+
+
 def box_iou_matrix(boxes_a, boxes_b, plus_one=False, mode="iou"):
     """Pairwise IoU (or intersection-over-minimum, ``mode="iom"``) matrix:
     [..., Na, Nb].

@@ -81,7 +81,7 @@ def silhouette_score(x, labels, n_clusters=None, mesh=None, *, device=None):
     if mesh is not None and device is not None:
         raise ValueError("pass device= or mesh=, not both")
     xd, lab, k = _inputs(x, labels, n_clusters,
-                         mesh.devices[0] if mesh is not None else device)
+                         mesh.shards[0] if mesh is not None else device)
     onehot, counts = _onehot_stats(lab, k)
     n = xd.shape[0]
 

@@ -71,6 +71,6 @@ def dedup_cosine(feats, mesh=None):
         return nearest_earlier(cosine_gram(full[rows[0]:rows[1]], full), row0=rows[0])
 
     parts = map_shards(mesh, shard, row_ranges(feats.shape[0], mesh))
-    dev0 = mesh.devices[0]
+    dev0 = mesh.shards[0]
     return (gather_rows([m for m, _ in parts], dev0),
             gather_rows([i for _, i in parts], dev0))

@@ -94,7 +94,7 @@ class _Rows:
         if mesh is not None and device is not None:
             raise ValueError("pass device= or mesh=, not both")
         self.mesh = mesh
-        self.devices = mesh.devices if mesh is not None else (config.resolve_device(device),)
+        self.devices = mesh.shards if mesh is not None else (config.resolve_device(device),)
         self.dev0 = self.devices[0]
         self.blocks = [torch.from_numpy(np.ascontiguousarray(b)).to(d)
                        for b, d in zip(split_rows(x, mesh), self.devices)]

@@ -119,3 +119,13 @@ def topk_by_score(scores, keep, topk):
     vals, idx = _sort_desc(_masked(scores, keep))
     vals, idx = vals[..., :topk], idx[..., :topk]
     return idx, vals > float("-inf")
+
+
+def batched_nms_topk(boxes, scores, valid, iou_thr, topk, group_ids=None, plus_one=False):
+    """Greedy NMS then the top ``topk`` kept candidates by score (the
+    fixed-capacity ``final_nms``): flat padded buffers [K, ...] -> ([topk,
+    4] boxes, [topk] scores, [topk] source indices, [topk] valid mask), in
+    the order of ``topk_by_score`` (exact, stable)."""
+    keep = nms_keep_mask(boxes, scores, valid, iou_thr, group_ids=group_ids, plus_one=plus_one)
+    idx, out_valid = topk_by_score(scores, keep, topk)
+    return boxes[idx], scores[idx], idx, out_valid

@@ -84,7 +84,7 @@ class FaceService:
         self.criteria = criteria or BoxCriteria()
         self.max_batch = max_batch
         mesh = resolve_mesh(mesh)
-        self.device = config.resolve_device(device) if mesh is None else mesh.devices[0]
+        self.device = config.resolve_device(device) if mesh is None else mesh.shards[0]
         if detector is None:
             from .pipeline.detection import get_detector_model
 

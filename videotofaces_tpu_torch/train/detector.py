@@ -16,7 +16,15 @@ the inference decode), over the candidates in the JAX flat order (level
 NCHW maps the same way).
 
 The canvas is NCHW float32 (RGB / 255) here. Each step runs under
-``config.model_call()``. No mesh: the sharded steps are not ported yet.
+``config.model_call()``.
+
+``make_sharded_head_step`` / ``make_sharded_full_step`` run the step over
+a ``("data",)`` mesh (parallel/mesh.py) in one process: each shard's head
+maps on its device's copy of the model (the trunk without autograd in the
+head step), gathered in shard order on the mesh's first device, where one
+loss over the whole batch (its normalisers ``n_pos`` and ``learn.sum()``
+count every image) and one backward run; the gradients are summed over
+the shards, then one clip and one AdamW update, the copies refreshed.
 """
 
 import numpy as np
@@ -26,8 +34,10 @@ import torch.nn.functional as F
 from .. import config
 from ..models import yolo as Y
 from ..ops.boxes import decode_boxes
+from ..parallel.mesh import pad_to_multiple
 from ..utils.weights import yolo_to_jax
-from .optim import AdamW, leaves, refuse_mesh, run_epochs, run_step
+from .optim import (AdamW, ShardedStep, check_batch, leaves, module_replicas, run_epochs,
+                    run_step, sharded_forward)
 
 
 # -- host-side target assignment (numpy, as in the JAX package) ---------------
@@ -163,22 +173,31 @@ def detection_loss_full(model, images, obj_t, box_t, priors, strides, num_classe
                            box_weight)
 
 
+def _head_maps(model, images):
+    """The head's maps with the backbone and the neck run without autograd."""
+    with torch.no_grad():
+        feats = model.neck(*model.backbone(images))
+    return model.head(*feats)
+
+
 def detection_loss(model, images, obj_t, box_t, priors, strides, num_classes=1,
                    box_weight=2.0):
     """Head-only view of ``detection_loss_full``: the backbone and the neck
     run without autograd (constants), only ``model.head`` is differentiated."""
     _check_classes(num_classes)
-    with torch.no_grad():
-        feats = model.neck(*model.backbone(images))
-    return _loss_from_maps(model.head(*feats), obj_t, box_t, priors, strides, num_classes,
-                           box_weight)
+    return _loss_from_maps(_head_maps(model, images), obj_t, box_t, priors, strides,
+                           num_classes, box_weight)
+
+
+def _detached(out):
+    loss, aux = out
+    return loss, {k: v.detach() for k, v in aux.items()}
 
 
 def _step(loss_fn, model, opt, images, obj_t, box_t, priors, strides, num_classes,
           box_weight):
-    loss, aux = run_step(opt, lambda: loss_fn(model, images, obj_t, box_t, priors, strides,
-                                              num_classes, box_weight))
-    return loss, {k: v.detach() for k, v in aux.items()}
+    return _detached(run_step(opt, lambda: loss_fn(model, images, obj_t, box_t, priors,
+                                                   strides, num_classes, box_weight)))
 
 
 def train_step(model, opt, images, obj_t, box_t, priors, strides, num_classes=1,
@@ -227,6 +246,41 @@ def layerwise_tx(model, learning_rate, scales=None, clip_norm=1.0):
     return AdamW(leaves(model), learning_rate, scale_of=scale_of, clip_norm=clip_norm)
 
 
+def _make_sharded(maps_of, mesh, tx, model, priors, strides, num_classes, box_weight):
+    _check_classes(num_classes)
+    models, replicas = module_replicas(mesh, model, tx)
+    dev0 = mesh.shards[0]
+    pr, st = (torch.as_tensor(a).to(dev0) for a in (priors, strides))
+
+    def step(images, obj_t, box_t):
+        check_batch(len(images), mesh)
+        return _detached(run_step(tx, lambda: _loss_from_maps(
+            sharded_forward(mesh, models, maps_of, images), obj_t.to(dev0), box_t.to(dev0),
+            pr, st, num_classes, box_weight), replicas))
+
+    return ShardedStep(step, model.state_dict), model, tx
+
+
+def make_sharded_head_step(mesh, tx, model, priors, strides, num_classes=1, box_weight=2.0):
+    """``train_step`` over a ``("data",)`` mesh: ``model`` (a ``YOLOv3``)
+    moves to the mesh's first device with a copy on each other distinct
+    one, and ``tx`` (``bn_stats_frozen`` over ``model.head``'s leaves) is
+    rebound to it (``optim.module_replicas``); ``priors`` / ``strides`` from
+    ``flat_priors_and_strides``. Returns (step, model, tx); ``step(images
+    [B, 3, Hc, Wc], obj_t, box_t)`` -> (loss, aux), with B divisible by the
+    ``"data"`` size (else it raises)."""
+    return _make_sharded(_head_maps, mesh, tx, model, priors, strides, num_classes,
+                         box_weight)
+
+
+def make_sharded_full_step(mesh, tx, model, priors, strides, num_classes=1, box_weight=2.0):
+    """``train_step_full`` over a ``("data",)`` mesh, placed as
+    ``make_sharded_head_step``; ``tx`` from ``layerwise_tx``, its clip over
+    the global norm of the summed gradients."""
+    return _make_sharded(lambda m, x: m(x), mesh, tx, model, priors, strides, num_classes,
+                         box_weight)
+
+
 def _setup(frames_u8, gt_boxes_list, max_side, num_classes, params, pos_iou, neg_iou,
            device):
     """The model on the device, the host data and the priors of both loops."""
@@ -247,17 +301,35 @@ def _setup(frames_u8, gt_boxes_list, max_side, num_classes, params, pos_iou, neg
         torch.from_numpy(strides).to(device)
 
 
-def _fit(step, model, opt, data, pr, st, epochs, batch_size, seed, num_classes,
-         box_weight, device):
+def _fit(step, data, epochs, batch_size, seed, device):
     canvas, obj_ts, box_ts = data
 
     def run_batch(idx):
         x = torch.from_numpy(canvas[idx]).to(device).permute(0, 3, 1, 2).contiguous()
-        return step(model, opt, x, torch.from_numpy(obj_ts[idx]).to(device),
-                    torch.from_numpy(box_ts[idx]).to(device), pr, st, num_classes,
-                    box_weight)[0]
+        return step(x, torch.from_numpy(obj_ts[idx]).to(device),
+                    torch.from_numpy(box_ts[idx]).to(device))[0]
 
     return run_epochs(len(canvas), epochs, batch_size, seed, run_batch)
+
+
+def _loop(single, maker, make_opt, frames_u8, gt_boxes_list, epochs, batch_size, max_side,
+          num_classes, mesh, seed, params, pos_iou, neg_iou, box_weight, device):
+    """Both loops: the model and the data, the optimizer ``make_opt(model)``
+    and the epochs of ``single`` steps, or of ``maker``'s over ``mesh``."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass device= or mesh=, not both")
+    device = config.resolve_device(device) if mesh is None else mesh.shards[0]
+    model, data, pr, st = _setup(frames_u8, gt_boxes_list, max_side, num_classes, params,
+                                 pos_iou, neg_iou, device)
+    opt = make_opt(model)
+    if mesh is not None:
+        step = maker(mesh, opt, model, pr, st, num_classes, box_weight)[0]
+        batch_size = pad_to_multiple(batch_size, mesh.shape["data"])
+    else:
+        def step(x, o_t, b_t):
+            return single(model, opt, x, o_t, b_t, pr, st, num_classes, box_weight)
+    history = _fit(step, data, epochs, batch_size, seed, device)
+    return yolo_to_jax(model.state_dict()), history
 
 
 def finetune_yolo_head(frames_u8, gt_boxes_list, epochs=5, batch_size=8, learning_rate=1e-4,
@@ -268,18 +340,16 @@ def finetune_yolo_head(frames_u8, gt_boxes_list, epochs=5, batch_size=8, learnin
     layout, numpy arrays, trunk untouched; history of per-epoch mean
     losses). ``params``: a JAX-layout tree (None: the converted checkpoint,
     or seeded weights with a note). The tree loads into
-    ``YoloDetector(params=)``. ``mesh``: the JAX loop's data mesh;
-    anything but None raises (``optim.refuse_mesh``). ``device``: None
-    means the card."""
-    refuse_mesh(mesh)
-    device = config.resolve_device(device)
-    model, data, pr, st = _setup(frames_u8, gt_boxes_list, max_side, num_classes, params,
-                                 pos_iou, neg_iou, device)
+    ``YoloDetector(params=)``. ``mesh``: a ``("data",)`` mesh
+    (``parallel.make_mesh``) runs each step sharded
+    (``make_sharded_head_step``), the batch rounded up to a multiple of its
+    data shards. ``device``: None means the card; pass ``device`` or
+    ``mesh``, not both."""
     # the head's bridges are ConvUnits with statistics: frozen here too
-    opt = bn_stats_frozen(leaves(model.head), learning_rate)
-    history = _fit(train_step, model, opt, data, pr, st, epochs, batch_size, seed,
-                   num_classes, box_weight, device)
-    return yolo_to_jax(model.state_dict()), history
+    return _loop(train_step, make_sharded_head_step,
+                 lambda m: bn_stats_frozen(leaves(m.head), learning_rate), frames_u8,
+                 gt_boxes_list, epochs, batch_size, max_side, num_classes, mesh, seed,
+                 params, pos_iou, neg_iou, box_weight, device)
 
 
 def finetune_yolo_full(frames_u8, gt_boxes_list, epochs=5, batch_size=8, learning_rate=1e-4,
@@ -287,13 +357,9 @@ def finetune_yolo_full(frames_u8, gt_boxes_list, epochs=5, batch_size=8, learnin
                        params=None, pos_iou=0.5, neg_iou=0.4, box_weight=2.0, *,
                        device=None):
     """Full fine-tune with layerwise learning rates (``trunk_scales`` ->
-    ``layerwise_tx``). Same data path and return contract as
-    ``finetune_yolo_head``."""
-    refuse_mesh(mesh)
-    device = config.resolve_device(device)
-    model, data, pr, st = _setup(frames_u8, gt_boxes_list, max_side, num_classes, params,
-                                 pos_iou, neg_iou, device)
-    opt = layerwise_tx(model, learning_rate, trunk_scales)
-    history = _fit(train_step_full, model, opt, data, pr, st, epochs, batch_size, seed,
-                   num_classes, box_weight, device)
-    return yolo_to_jax(model.state_dict()), history
+    ``layerwise_tx``), sharded by ``make_sharded_full_step`` over ``mesh``.
+    Same data path and return contract as ``finetune_yolo_head``."""
+    return _loop(train_step_full, make_sharded_full_step,
+                 lambda m: layerwise_tx(m, learning_rate, trunk_scales), frames_u8,
+                 gt_boxes_list, epochs, batch_size, max_side, num_classes, mesh, seed,
+                 params, pos_iou, neg_iou, box_weight, device)

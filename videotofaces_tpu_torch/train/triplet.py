@@ -6,15 +6,24 @@ entries are stale and enter without gradient, ``bank_valid`` masks its
 unfilled capacity). Embeddings are L2-normalized inside the loss.
 
 Images are NCHW float32 here. Each step runs under ``config.model_call()``.
-No mesh: the sharded steps are not ported yet.
+
+``make_sharded_triplet_step`` / ``make_sharded_xbm_step`` run the step
+over a ``("data",)`` mesh (parallel/mesh.py) in one process: each shard's
+embeddings on its device's copy of the model, gathered in shard order on
+the mesh's first device, where one batch-hard loss over the whole batch
+mines the global [B, B] matrix (and the [B, M] block against the bank)
+and one backward runs; the gradients are summed over the shards, one
+AdamW update, the copies refreshed.
 """
 
 import numpy as np
 import torch
 
 from .. import config
+from ..parallel.mesh import pad_to_multiple
 from ..utils.weights import facenet_from_jax, facenet_to_jax
-from .optim import AdamW, leaves, refuse_mesh, run_epochs, run_step
+from .optim import (AdamW, ShardedStep, check_batch, leaves, module_replicas, run_epochs,
+                    run_step, sharded_forward)
 from .trainer import create_train_state  # noqa: F401 — one definition, shared
 
 
@@ -63,8 +72,7 @@ def batch_hard_mining_xbm(emb, labels, bank_emb, bank_labels, bank_valid):
     return torch.where(valid, d_ap, 0.0), torch.where(valid, d_an, 0.0), valid
 
 
-def _normalized(model, images):
-    emb = model(images)
+def _normalized(emb):
     return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
 
 
@@ -78,7 +86,10 @@ def _hinge(d_ap, d_an, valid, margin):
 def triplet_loss(model, images, labels, margin=0.2):
     """Batch-hard triplet loss over one batch: (loss, active fraction —
     the share of anchors whose hinge is above 0)."""
-    emb = _normalized(model, images)
+    return _loss(_normalized(model(images)), labels, margin)
+
+
+def _loss(emb, labels, margin):
     return _hinge(*batch_hard_mining(emb, labels), margin)
 
 
@@ -86,7 +97,11 @@ def triplet_loss_xbm(model, images, labels, bank_emb, bank_labels, bank_valid, m
     """Batch-hard triplet loss with the memory bank's negatives: (loss,
     (active fraction, the normalized batch embeddings, detached — what the
     caller pushes into the bank))."""
-    emb = _normalized(model, images)
+    return _loss_xbm(_normalized(model(images)), labels, bank_emb, bank_labels, bank_valid,
+                     margin)
+
+
+def _loss_xbm(emb, labels, bank_emb, bank_labels, bank_valid, margin):
     loss, active = _hinge(*batch_hard_mining_xbm(emb, labels, bank_emb, bank_labels,
                                                  bank_valid), margin)
     return loss, (active, emb.detach())
@@ -137,6 +152,44 @@ class MemoryBank:
         self._ptr = int((self._ptr + n) % cap)
 
 
+def make_sharded_triplet_step(mesh, model, tx, margin=0.2):
+    """``train_step`` over a ``("data",)`` mesh: ``model`` (an
+    ``nn.Module``) moves to the mesh's first device with a copy on each
+    other distinct one, and ``tx`` (``AdamW`` over its leaves) is rebound
+    to it (``optim.module_replicas``). Returns (step, model, tx);
+    ``step(images [B, 3, H, W], labels [B])`` -> (loss, active fraction),
+    with B divisible by the ``"data"`` size (else it raises)."""
+    models, replicas = module_replicas(mesh, model, tx)
+    dev0 = mesh.shards[0]
+
+    def step(images, labels):
+        check_batch(len(images), mesh)
+        return run_step(tx, lambda: _loss(_normalized(sharded_forward(
+            mesh, models, lambda m, x: m(x), images)), labels.to(dev0), margin), replicas)
+
+    return ShardedStep(step, model.state_dict), model, tx
+
+
+def make_sharded_xbm_step(mesh, model, tx, margin=0.2):
+    """``train_step_xbm`` over a ``("data",)`` mesh, placed as
+    ``make_sharded_triplet_step``; the bank (replicated, read-only in the
+    step) is read on the mesh's first device. ``step(images, labels,
+    bank_emb, bank_labels, bank_valid)`` -> (loss, active fraction, the
+    normalized embeddings of the whole batch in shard order)."""
+    models, replicas = module_replicas(mesh, model, tx)
+    dev0 = mesh.shards[0]
+
+    def step(images, labels, bank_emb, bank_labels, bank_valid):
+        check_batch(len(images), mesh)
+        bank = [t.to(dev0) for t in (bank_emb, bank_labels, bank_valid)]
+        loss, (active, emb) = run_step(tx, lambda: _loss_xbm(_normalized(sharded_forward(
+            mesh, models, lambda m, x: m(x), images)), labels.to(dev0), *bank, margin),
+            replicas)
+        return loss, active, emb
+
+    return ShardedStep(step, model.state_dict), model, tx
+
+
 def finetune_facenet(images, labels, epochs=5, batch_size=32, margin=0.2,
                      learning_rate=1e-5, casia=False, mesh=None, seed=0, params=None,
                      model=None, bank_size=0, *, device=None):
@@ -151,17 +204,21 @@ def finetune_facenet(images, labels, epochs=5, batch_size=32, margin=0.2,
     converted checkpoint, or seeded weights with a note when it is absent).
     ``model``: an ``nn.Module`` to train in FaceNet's place (NCHW float
     input -> [B, D] embeddings). ``bank_size > 0`` adds the memory bank's
-    negatives (``MemoryBank`` of that many recent embeddings).
-    ``mesh``: the JAX loop's data mesh; anything but None raises
-    (``optim.refuse_mesh``). ``device``: None means the card.
+    negatives (``MemoryBank`` of that many recent embeddings). ``mesh``: a
+    ``("data",)`` mesh (``parallel.make_mesh``) runs each step sharded
+    (``make_sharded_triplet_step`` / ``make_sharded_xbm_step``), the batch
+    rounded up to a multiple of its data shards, the bank on its first
+    device. ``device``: None means the card; pass ``device`` or ``mesh``,
+    not both.
 
     Returns (the trained tree in the JAX layout, numpy arrays; history of
     per-epoch mean losses)."""
     from ..models import facenet as FN
     from ..models.wrappers import _resolve_checkpoint
 
-    refuse_mesh(mesh)
-    device = config.resolve_device(device)
+    if mesh is not None and device is not None:
+        raise ValueError("pass device= or mesh=, not both")
+    device = config.resolve_device(device) if mesh is None else mesh.shards[0]
     if model is None:
         if params is None:
             params = _resolve_checkpoint("facenet_casia" if casia else "facenet_vgg")
@@ -177,14 +234,24 @@ def finetune_facenet(images, labels, epochs=5, batch_size=32, margin=0.2,
         with torch.no_grad(), config.model_call():
             dim = model(torch.zeros((1, 3) + images.shape[1:3], device=device)).shape[-1]
         bank = MemoryBank(bank_size, dim, device)
+    if mesh is not None:
+        maker = make_sharded_xbm_step if bank else make_sharded_triplet_step
+        step = maker(mesh, model, opt, margin)[0]
+        batch_size = pad_to_multiple(batch_size, mesh.shape["data"])
+    elif bank is not None:
+        def step(*batch):
+            return train_step_xbm(model, opt, *batch, margin)
+    else:
+        def step(*batch):
+            return train_step(model, opt, *batch, margin)
 
     def run_batch(idx):
         rgb = torch.from_numpy(np.ascontiguousarray(images[idx][..., ::-1])).to(device)
         x = FN.preprocess_uint8(rgb).permute(0, 3, 1, 2).contiguous()
         y = torch.from_numpy(labels[idx]).to(device)
         if bank is None:
-            return train_step(model, opt, x, y, margin)[0]
-        loss, _, emb = train_step_xbm(model, opt, x, y, *bank.arrays(), margin)
+            return step(x, y)[0]
+        loss, _, emb = step(x, y, *bank.arrays())
         bank.push(emb.cpu().numpy(), labels[idx])
         return loss
 

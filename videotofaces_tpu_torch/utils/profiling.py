@@ -5,7 +5,9 @@
 - ``trace(dir)`` wraps ``torch.profiler`` (CPU + CUDA activity) around a
   block and writes a Chrome trace there; a no-op unless a directory is given
   or V2F_PROFILE_DIR is set:
-  ``V2F_PROFILE_DIR=/tmp/trace python -m videotofaces_tpu_torch ...``
+  ``V2F_PROFILE_DIR=/tmp/trace python -m videotofaces_tpu_torch ...``;
+- ``sync(out)`` waits for the device that holds ``out``, ``annotate(name)``
+  names a span inside a trace.
 """
 
 import contextlib
@@ -65,3 +67,36 @@ def trace(log_dir=None):
     path = osp.join(log_dir, "trace_%d.json" % os.getpid())
     prof.export_chrome_trace(path)
     print(f"Wrote device trace to {path} (open with chrome://tracing or Perfetto)")
+
+
+def _first_tensor(out):
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return out
+    items = out.values() if isinstance(out, dict) else out if isinstance(out, (list, tuple)) \
+        else ()
+    for v in items:
+        t = _first_tensor(v)
+        if t is not None:
+            return t
+    return None
+
+
+def sync(out):
+    """Device-completion barrier for a timing loop: wait until every launch
+    queued on the device of ``out``'s first tensor (a tensor or a nested
+    list / tuple / dict) has finished. A CPU tensor, or no tensor, needs no
+    wait."""
+    import torch
+
+    t = _first_tensor(out)
+    if t is not None and t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def annotate(name):
+    """Named span inside a ``torch.profiler`` trace (cheap without one)."""
+    from torch.profiler import record_function
+
+    return record_function(name)

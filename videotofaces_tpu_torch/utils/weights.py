@@ -303,28 +303,41 @@ def yolo_from_jax(params_np):
     return _with_bn_names(jax_to_state_dict(params_np), ("bn",))
 
 
-def state_dict_to_jax(sd):
-    """A port ``state_dict`` -> the JAX package's nested numpy tree, the
-    inverse of the ``*_from_jax`` bridges: 4-d ``weight`` OIHW -> HWIO
-    ``kernel``, 2-d ``weight`` [out, in] -> [in, out] ``kernel``, 1-d
-    ``weight`` (a BatchNorm's or LayerNorm's) -> ``scale``, ``running_mean``
-    / ``running_var`` -> ``mean`` / ``var``; every other leaf as it is. The
+_JAX_NAMES = {"running_mean": "mean", "running_var": "var"}
+
+
+def jax_path(key, ndim):
+    """A port state-dict key and its leaf's rank -> (the JAX tree path
+    "a/b/kernel", the permutation ``perm`` with ``jax_leaf =
+    leaf.permute(perm)``): 4-d ``weight`` OIHW -> HWIO ``kernel``, 2-d
+    ``weight`` [out, in] -> [in, out] ``kernel``, 1-d ``weight`` (a
+    BatchNorm's or LayerNorm's) -> ``scale``, ``running_mean`` /
+    ``running_var`` -> ``mean`` / ``var``; every other leaf as it is. The
     port names no other 1-d ``weight``, so the rule is the same for every
-    model; values are copied bit for bit in their dtype."""
-    names = {"running_mean": "mean", "running_var": "var"}
+    model."""
+    parts = key.split(".")
+    perm = tuple(range(ndim))
+    if parts[-1] == "weight":
+        if ndim == 4:
+            parts[-1], perm = "kernel", (2, 3, 1, 0)
+        elif ndim == 2:
+            parts[-1], perm = "kernel", (1, 0)
+        else:
+            parts[-1] = "scale"
+    parts[-1] = _JAX_NAMES.get(parts[-1], parts[-1])
+    return "/".join(parts), perm
+
+
+def state_dict_to_jax(sd):
+    """A port ``state_dict`` -> the JAX package's nested numpy tree (the
+    names and layouts of ``jax_path``), the inverse of the ``*_from_jax``
+    bridges; values are copied bit for bit in their dtype."""
     flat = {}
     for key, val in sd.items():
-        parts = key.split(".")
         val = val.detach().cpu().numpy()
-        if parts[-1] == "weight":
-            if val.ndim == 4:
-                parts[-1], val = "kernel", val.transpose(2, 3, 1, 0)
-            elif val.ndim == 2:
-                parts[-1], val = "kernel", val.T
-            else:
-                parts[-1] = "scale"
-        parts[-1] = names.get(parts[-1], parts[-1])
-        flat["/".join(parts)] = np.ascontiguousarray(val)
+        path, perm = jax_path(key, val.ndim)
+        # a copy: ``numpy()`` of a CPU tensor shares its memory
+        flat[path] = np.array(val.transpose(perm), order="C", copy=True)
     return unflatten(flat)
 
 
