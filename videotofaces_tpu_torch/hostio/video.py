@@ -12,6 +12,8 @@ Contract (reference detection.py:68-119):
 New vs reference: ``PrefetchingFrameSource`` decodes batches in a background
 thread (double-buffered queue) so host decode overlaps device compute instead
 of serializing with it (reference loops decode->forward->write sequentially).
+Both sources keep a ``DecodeTally`` of their workers: the frames grabbed or
+read, and the time spent opening, seeking, decoding and cropping.
 """
 
 import queue
@@ -45,13 +47,15 @@ def frame_schedule(length, fps, video_step, video_fragment):
 
 
 class VideoReader:
-    """OpenCV-backed reader with seek-vs-grab strategy."""
+    """OpenCV-backed reader with seek-vs-grab strategy. ``decoded`` counts
+    the frames it grabbed or read."""
 
     def __init__(self, path):
         self.cap = cv2.VideoCapture(path)
         self.length = round(self.cap.get(cv2.CAP_PROP_FRAME_COUNT))
         self.fps = round(self.cap.get(cv2.CAP_PROP_FPS))
         self._cursor = 0
+        self.decoded = 0
 
     def is_open(self):
         return self.cap.isOpened()
@@ -70,10 +74,12 @@ class VideoReader:
                 # large steps: seeking beats decoding every frame
                 self.cap.set(cv2.CAP_PROP_POS_FRAMES, i - 1)
                 _, frame = self.cap.read()
+                self.decoded += 1
             else:
                 # small steps: sequential grab (decode headers only) is faster
                 for _ in range(self._cursor, i + 1):
                     self.cap.grab()
+                self.decoded += max(0, i + 1 - self._cursor)
                 self._cursor = i + 1
                 _, frame = self.cap.retrieve()
             frames.append(frame)
@@ -93,12 +99,14 @@ class DecordReader:
             self.vr = decord.VideoReader(path)
         self.length = len(self.vr)
         self.fps = round(self.vr.get_avg_fps())
+        self.decoded = 0
 
     def is_open(self):
         return self.length > 0
 
     def read_batch(self, indices, step):
         frames = self.vr.get_batch(list(indices)).asnumpy()[..., [2, 1, 0]]  # RGB -> BGR
+        self.decoded += len(indices)
         self.vr.seek(0)  # decord#208 seek-state workaround
         return frames
 
@@ -112,6 +120,33 @@ def open_reader(path, video_reader="opencv"):
             return DecordReader(path)
         print("NOTE: decord is not available in this environment; using OpenCV decode")
     return VideoReader(path)
+
+
+class DecodeTally:
+    """Totals of a source's decode workers, added under a lock: ``frames``
+    grabbed or read, and ``ns`` spent opening, seeking, decoding and
+    cropping (time blocked on a full queue left out)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.frames = 0
+        self.ns = 0
+
+    def add(self, frames, ns):
+        with self._lock:
+            self.frames += frames
+            self.ns += ns
+
+    def read_batch(self, reader, bi, step, video_area):
+        """``reader.read_batch(bi, step)``, cropped to ``video_area``,
+        added to the totals (frames by the reader's ``decoded``)."""
+        t0, n0 = time.perf_counter_ns(), reader.decoded
+        frames = reader.read_batch(bi, step)
+        if video_area:
+            x1, y1, x2, y2 = video_area
+            frames = frames[:, y1:y2, x1:x2, :]
+        self.add(reader.decoded - n0, time.perf_counter_ns() - t0)
+        return frames
 
 
 class PrefetchingFrameSource:
@@ -131,6 +166,7 @@ class PrefetchingFrameSource:
         self.step = step
         self.video_area = video_area
         self.queue = queue.Queue(maxsize=depth)
+        self.tally = DecodeTally()
         self.error = None
         self._stop = False
         self.thread = threading.Thread(target=self._work, daemon=True)
@@ -141,10 +177,7 @@ class PrefetchingFrameSource:
             for bi in self.batches:
                 if self._stop:
                     break
-                frames = self.reader.read_batch(bi, self.step)
-                if self.video_area:
-                    x1, y1, x2, y2 = self.video_area
-                    frames = frames[:, y1:y2, x1:x2, :]
+                frames = self.tally.read_batch(self.reader, bi, self.step, self.video_area)
                 self.queue.put((bi, frames))
         except Exception as e:  # surfaced on the consumer side
             self.error = e
@@ -221,6 +254,7 @@ class ParallelFrameSource:
         self.step = step
         self.video_area = video_area
         self.queues = [queue.Queue(maxsize=depth_per_worker) for _ in self.segments]
+        self.tally = DecodeTally()
         self.errors = [None] * len(self.segments)
         self._stop = False          # must exist before any worker starts
         self.threads = []
@@ -236,6 +270,7 @@ class ParallelFrameSource:
         try:
             if not seg_batches:
                 return
+            t0 = time.perf_counter_ns()
             reader = open_reader(path, reader_kind)
             if not reader.is_open():
                 raise RuntimeError("could not open video: %s" % path)
@@ -243,14 +278,11 @@ class ParallelFrameSource:
                 # sequential-grab strategy: start decoding at the segment head
                 # instead of replaying the whole prefix
                 reader.seek_to(seg_batches[0][0])
+            self.tally.add(0, time.perf_counter_ns() - t0)
             for bi in seg_batches:
                 if self._stop:
                     break
-                frames = reader.read_batch(bi, self.step)
-                if self.video_area:
-                    x1, y1, x2, y2 = self.video_area
-                    frames = frames[:, y1:y2, x1:x2, :]
-                q.put((bi, frames))
+                q.put((bi, self.tally.read_batch(reader, bi, self.step, self.video_area)))
         except Exception as e:
             self.errors[j] = e
         finally:

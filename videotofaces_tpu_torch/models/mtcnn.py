@@ -33,6 +33,7 @@ from torch import nn
 from ..ops.crops_kernel import pool_crops
 from ..ops.nms import iom_chain_suppress, nms_keep_mask_bucketed, take_rows, topk_by_score
 from ..ops.pnet_kernel import packed_weights, pnet_level
+from ..utils.profiling import span, sync_span
 from ..utils.weights import mtcnn_from_jax
 from .layers import PConv, PReLU, init_uniform_fan_in_
 
@@ -228,78 +229,6 @@ def full_forward(model, frames_u8, minsize=20, caps=Caps(),
     zeros_b = torch.zeros((b,), dtype=torch.int32, device=dev)
     counts = {}
 
-    # ---- stage 1: proposal network over the pyramid -------------------------
-    s_boxes, s_scores, s_preds, s_valid = [], [], [], []
-    total_cand, scale_max = zeros_b, zeros_b
-    for sc, level_hw in zip(scales, sizes):
-        reg_m, prob_m = pnet_level(frames_u8, level_hw, weights, kdt)
-        ph, pw = prob_m.shape[1:]
-        d = ph * pw
-        flat_prob = prob_m.reshape(b, d)
-        masked = torch.where(flat_prob >= t1, flat_prob, torch.zeros_like(flat_prob))
-        level_cand = (masked > 0).sum(dim=1).to(torch.int32)
-        total_cand = total_cand + level_cand
-        scale_max = torch.maximum(scale_max, level_cand)
-        k1 = min(caps.pre1, d)
-        scores, idx = torch.sort(masked, dim=1, descending=True, stable=True)
-        scores, idx = scores[:, :k1], idx[:, :k1]
-        valid = scores >= t1
-        wi, hi = (idx % pw).float(), (idx // pw).float()
-        # (2 * x + 1) / scale as the JAX package's compiled cascade computes
-        # it: XLA turns the division by the constant scale into a product
-        # with its float32 reciprocal, and floor() makes the difference a
-        # whole pixel at some positions
-        inv = (torch.tensor(1.0, dtype=torch.float32)
-               / torch.tensor(sc, dtype=torch.float32)).to(dev)
-        boxes = torch.stack([
-            torch.floor((2.0 * wi + 1.0) * inv), torch.floor((2.0 * hi + 1.0) * inv),
-            torch.floor((2.0 * wi + 12.0) * inv), torch.floor((2.0 * hi + 12.0) * inv),
-        ], dim=-1)                                                # [B, k1, 4]
-        preds = torch.gather(reg_m.reshape(b, 4, d), 2,
-                             idx[:, None, :].expand(b, 4, k1)).transpose(1, 2).float()
-        if stage1_nms == "level":
-            keep = _per_image_nms(boxes, scores, valid, 0.5)
-            valid, boxes, scores, preds = _select_topk(
-                scores, keep, min(caps.post1, k1), boxes, scores, preds)
-        s_boxes.append(boxes)
-        s_scores.append(scores)
-        s_preds.append(preds)
-        s_valid.append(valid)
-    counts["stage1"] = total_cand
-    counts["stage1_scale_max"] = scale_max   # pre1 caps each scale, not the total
-    counts["stage1_select_overflow"] = zeros_b   # exact top-k: never truncates
-
-    if stage1_nms == "stacked":
-        # one [B*L, K] problem set: rows are independent (image, level) NMS
-        # problems, padded with invalid slots that can never be kept
-        nl, kmax = len(s_scores), max(a.shape[1] for a in s_scores)
-
-        def stack(arrs):
-            padded = [torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2)
-                                              + (0, kmax - a.shape[1])) for a in arrs]
-            return torch.stack(padded, dim=1).reshape((b * nl, kmax) + arrs[0].shape[2:])
-
-        bx, sc_, pr, vl = (stack(a) for a in (s_boxes, s_scores, s_preds, s_valid))
-        keep = _per_image_nms(bx, sc_, vl, 0.5)
-        k1p = min(caps.post1, kmax)
-        vl, bx, sc_, pr = _select_topk(sc_, keep, k1p, bx, sc_, pr)
-        boxes, scores = bx.reshape(b, nl * k1p, 4), sc_.reshape(b, nl * k1p)
-        preds, valid = pr.reshape(b, nl * k1p, 4), vl.reshape(b, nl * k1p)
-    else:
-        boxes, scores = torch.cat(s_boxes, dim=1), torch.cat(s_scores, dim=1)
-        preds, valid = torch.cat(s_preds, dim=1), torch.cat(s_valid, dim=1)
-    # survivors entering the cross-scale stage; caps.cross truncates here
-    counts["cross_in"] = valid.sum(dim=1).to(torch.int32)
-    if boxes.shape[1] > caps.cross:
-        ninf = torch.full_like(scores, float("-inf"))
-        valid, boxes, scores, preds = _select_topk(
-            torch.where(valid, scores, ninf), valid, caps.cross, boxes, scores, preds)
-
-    keep = _per_image_nms(boxes, scores, valid, 0.7)
-    valid, boxes, scores, preds = _select_topk(
-        scores, keep, min(caps.stage2, boxes.shape[1]), boxes, scores, preds)
-    boxes = square_bbox(refine_bbox(boxes, preds, plus_one=False))
-
     def run_subnet(module, boxes, valid, size):
         k = boxes.shape[1]
         win, ok = _crop_windows(boxes.reshape(b * k, 4), (h, w))
@@ -315,39 +244,116 @@ def full_forward(model, frames_u8, minsize=20, caps=Caps(),
         out = tuple(t.float() for t in module(x))
         return out, valid & ok.reshape(b, k)
 
-    # ---- stage 2: refinement network ---------------------------------------
-    (reg2, prob2), valid = run_subnet(model.rnet, boxes, valid, 24)
-    counts["stage2_crop_dropped"] = zeros_b   # no size buckets: nothing dropped
-    k2 = boxes.shape[1]
-    scores = prob2.reshape(b, k2)
-    preds = reg2.reshape(b, k2, 4)
-    valid = valid & (scores > t2)
-    counts["stage2"] = valid.sum(dim=1).to(torch.int32)
-    keep = _per_image_nms(boxes, scores, valid, 0.7)
-    valid, boxes, scores, preds = _select_topk(
-        scores, keep, min(caps.stage3, k2), boxes, scores, preds)
-    boxes = square_bbox(refine_bbox(boxes, preds, plus_one=True))
+    # ---- stage 1: proposal network over the pyramid -------------------------
+    with span("mtcnn:stage1"):
+        s_boxes, s_scores, s_preds, s_valid = [], [], [], []
+        total_cand, scale_max = zeros_b, zeros_b
+        for sc, level_hw in zip(scales, sizes):
+            reg_m, prob_m = pnet_level(frames_u8, level_hw, weights, kdt)
+            ph, pw = prob_m.shape[1:]
+            d = ph * pw
+            flat_prob = prob_m.reshape(b, d)
+            masked = torch.where(flat_prob >= t1, flat_prob, torch.zeros_like(flat_prob))
+            level_cand = (masked > 0).sum(dim=1).to(torch.int32)
+            total_cand = total_cand + level_cand
+            scale_max = torch.maximum(scale_max, level_cand)
+            k1 = min(caps.pre1, d)
+            scores, idx = torch.sort(masked, dim=1, descending=True, stable=True)
+            scores, idx = scores[:, :k1], idx[:, :k1]
+            valid = scores >= t1
+            wi, hi = (idx % pw).float(), (idx // pw).float()
+            # (2 * x + 1) / scale as the JAX package's compiled cascade computes
+            # it: XLA turns the division by the constant scale into a product
+            # with its float32 reciprocal, and floor() makes the difference a
+            # whole pixel at some positions
+            with sync_span(dev):
+                inv = (torch.tensor(1.0, dtype=torch.float32)
+                       / torch.tensor(sc, dtype=torch.float32)).to(dev)
+            boxes = torch.stack([
+                torch.floor((2.0 * wi + 1.0) * inv), torch.floor((2.0 * hi + 1.0) * inv),
+                torch.floor((2.0 * wi + 12.0) * inv), torch.floor((2.0 * hi + 12.0) * inv),
+            ], dim=-1)                                                # [B, k1, 4]
+            preds = torch.gather(reg_m.reshape(b, 4, d), 2,
+                                 idx[:, None, :].expand(b, 4, k1)).transpose(1, 2).float()
+            if stage1_nms == "level":
+                keep = _per_image_nms(boxes, scores, valid, 0.5)
+                valid, boxes, scores, preds = _select_topk(
+                    scores, keep, min(caps.post1, k1), boxes, scores, preds)
+            s_boxes.append(boxes)
+            s_scores.append(scores)
+            s_preds.append(preds)
+            s_valid.append(valid)
+        counts["stage1"] = total_cand
+        counts["stage1_scale_max"] = scale_max   # pre1 caps each scale, not the total
+        counts["stage1_select_overflow"] = zeros_b   # exact top-k: never truncates
+
+        if stage1_nms == "stacked":
+            # one [B*L, K] problem set: rows are independent (image, level) NMS
+            # problems, padded with invalid slots that can never be kept
+            nl, kmax = len(s_scores), max(a.shape[1] for a in s_scores)
+
+            def stack(arrs):
+                padded = [torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2)
+                                                  + (0, kmax - a.shape[1])) for a in arrs]
+                return torch.stack(padded, dim=1).reshape((b * nl, kmax) + arrs[0].shape[2:])
+
+            bx, sc_, pr, vl = (stack(a) for a in (s_boxes, s_scores, s_preds, s_valid))
+            keep = _per_image_nms(bx, sc_, vl, 0.5)
+            k1p = min(caps.post1, kmax)
+            vl, bx, sc_, pr = _select_topk(sc_, keep, k1p, bx, sc_, pr)
+            boxes, scores = bx.reshape(b, nl * k1p, 4), sc_.reshape(b, nl * k1p)
+            preds, valid = pr.reshape(b, nl * k1p, 4), vl.reshape(b, nl * k1p)
+        else:
+            boxes, scores = torch.cat(s_boxes, dim=1), torch.cat(s_scores, dim=1)
+            preds, valid = torch.cat(s_preds, dim=1), torch.cat(s_valid, dim=1)
+
+    # ---- stage 2: cross-scale NMS, refinement network -----------------------
+    with span("mtcnn:stage2"):
+        # survivors entering the cross-scale stage; caps.cross truncates here
+        counts["cross_in"] = valid.sum(dim=1).to(torch.int32)
+        if boxes.shape[1] > caps.cross:
+            ninf = torch.full_like(scores, float("-inf"))
+            valid, boxes, scores, preds = _select_topk(
+                torch.where(valid, scores, ninf), valid, caps.cross, boxes, scores, preds)
+
+        keep = _per_image_nms(boxes, scores, valid, 0.7)
+        valid, boxes, scores, preds = _select_topk(
+            scores, keep, min(caps.stage2, boxes.shape[1]), boxes, scores, preds)
+        boxes = square_bbox(refine_bbox(boxes, preds, plus_one=False))
+
+        (reg2, prob2), valid = run_subnet(model.rnet, boxes, valid, 24)
+        counts["stage2_crop_dropped"] = zeros_b   # no size buckets: nothing dropped
+        k2 = boxes.shape[1]
+        scores = prob2.reshape(b, k2)
+        preds = reg2.reshape(b, k2, 4)
+        valid = valid & (scores > t2)
+        counts["stage2"] = valid.sum(dim=1).to(torch.int32)
+        keep = _per_image_nms(boxes, scores, valid, 0.7)
+        valid, boxes, scores, preds = _select_topk(
+            scores, keep, min(caps.stage3, k2), boxes, scores, preds)
+        boxes = square_bbox(refine_bbox(boxes, preds, plus_one=True))
 
     # ---- stage 3: output network --------------------------------------------
-    (reg3, lmk3, prob3), valid = run_subnet(model.onet, boxes, valid, 48)
-    counts["stage3_crop_dropped"] = zeros_b
-    k3 = boxes.shape[1]
-    scores = prob3.reshape(b, k3)
-    preds = reg3.reshape(b, k3, 4)
-    lmk = lmk3.reshape(b, k3, 10)
-    valid = valid & (scores > t3)
-    counts["stage3"] = valid.sum(dim=1).to(torch.int32)
+    with span("mtcnn:stage3"):
+        (reg3, lmk3, prob3), valid = run_subnet(model.onet, boxes, valid, 48)
+        counts["stage3_crop_dropped"] = zeros_b
+        k3 = boxes.shape[1]
+        scores = prob3.reshape(b, k3)
+        preds = reg3.reshape(b, k3, 4)
+        lmk = lmk3.reshape(b, k3, 10)
+        valid = valid & (scores > t3)
+        counts["stage3"] = valid.sum(dim=1).to(torch.int32)
 
-    wi = boxes[..., 2] - boxes[..., 0] + 1.0
-    hi = boxes[..., 3] - boxes[..., 1] + 1.0
-    lm_x = wi[..., None] * lmk[..., :5] + boxes[..., 0:1] - 1.0
-    lm_y = hi[..., None] * lmk[..., 5:] + boxes[..., 1:2] - 1.0
-    landmarks = torch.stack([lm_x, lm_y], dim=-1)                # [B, k3, 5, 2]
+        wi = boxes[..., 2] - boxes[..., 0] + 1.0
+        hi = boxes[..., 3] - boxes[..., 1] + 1.0
+        lm_x = wi[..., None] * lmk[..., :5] + boxes[..., 0:1] - 1.0
+        lm_y = hi[..., None] * lmk[..., 5:] + boxes[..., 1:2] - 1.0
+        landmarks = torch.stack([lm_x, lm_y], dim=-1)                # [B, k3, 5, 2]
 
-    boxes = refine_bbox(boxes, preds, plus_one=True)
-    keep = iom_chain_suppress(boxes, scores, valid, 0.7)
-    out_valid, boxes, scores, landmarks = _select_topk(
-        scores, keep, min(caps.out, k3), boxes, scores, landmarks)
+        boxes = refine_bbox(boxes, preds, plus_one=True)
+        keep = iom_chain_suppress(boxes, scores, valid, 0.7)
+        out_valid, boxes, scores, landmarks = _select_topk(
+            scores, keep, min(caps.out, k3), boxes, scores, landmarks)
     return boxes, scores, landmarks, out_valid, counts
 
 

@@ -35,6 +35,7 @@ from ..ops.boxes import clamp_to_canvas, convert_to_cwh, decode_boxes, small_box
 from ..ops.nms import nms_keep_mask, take_rows, topk_by_score
 from ..ops.resize import bilinear_resize_matmul
 from ..ops.roi_align import roi_align_fpn
+from ..utils.profiling import span, sync_span
 from ..utils.weights import frcnn_from_jax
 from .layers import ConvUnit, init_uniform_fan_in_
 from .resnet import ResNet, torch_spec as resnet_spec
@@ -50,8 +51,10 @@ def _upsample_nearest(x, out_hw):
     JAX package's numpy indices: src = floor(dst * in / out)."""
     h, w = x.shape[-2:]
     oh, ow = out_hw
-    iy = torch.from_numpy((np.arange(oh) * (h / oh)).astype(np.int64)).to(x.device)
-    ix = torch.from_numpy((np.arange(ow) * (w / ow)).astype(np.int64)).to(x.device)
+    with sync_span(x.device):
+        iy = torch.from_numpy((np.arange(oh) * (h / oh)).astype(np.int64)).to(x.device)
+    with sync_span(x.device):
+        ix = torch.from_numpy((np.arange(ow) * (w / ow)).astype(np.int64)).to(x.device)
     return x.index_select(-2, iy).index_select(-1, ix)
 
 
@@ -272,8 +275,10 @@ def preprocess(frames_u8, resized_hw, canvas_hw, compute_dtype=None, orig_hw=Non
     ``orig_hw`` set: the frames were already resized on the host."""
     nh, nw = resized_hw
     dev = frames_u8.device
-    mean = torch.tensor(IMAGENET_MEAN, device=dev)
-    std = torch.tensor(IMAGENET_STD, device=dev)
+    with sync_span(dev):
+        mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    with sync_span(dev):
+        std = torch.tensor(IMAGENET_STD, device=dev)
     if compute_dtype is not None and orig_hw is None:
         x = bilinear_resize_matmul(frames_u8, (nh, nw), canvas_hw=canvas_hw)
         rows = torch.arange(canvas_hw[0], device=dev)[:, None] < nh
@@ -307,13 +312,17 @@ def full_forward(model, frames_u8, resized_hw, canvas_hw, priors_per_level,
     else:
         h, w = orig_hw
     nh, nw = resized_hw
-    x = preprocess(frames_u8, resized_hw, canvas_hw, compute_dtype, orig_hw)
-    pyramid, regs, logs = model.body(x)
-    regs = [t.float() for t in regs]
-    logs = [t.float() for t in logs]
-    used = torch.tensor([[nh, nw]], dtype=torch.float32, device=x.device).repeat(x.shape[0], 1)
-    proposals, pvalid, select_overflow = rpn_proposals(
-        regs, logs, priors_per_level, used, lvtop=proposal_cap, out_top=proposal_cap)
+    with span("rcnn:body"):
+        x = preprocess(frames_u8, resized_hw, canvas_hw, compute_dtype, orig_hw)
+        pyramid, regs, logs = model.body(x)
+        regs = [t.float() for t in regs]
+        logs = [t.float() for t in logs]
+    with span("rcnn:rpn"):
+        with sync_span(x.device):
+            used = torch.tensor([[nh, nw]], dtype=torch.float32,
+                                device=x.device).repeat(x.shape[0], 1)
+        proposals, pvalid, select_overflow = rpn_proposals(
+            regs, logs, priors_per_level, used, lvtop=proposal_cap, out_top=proposal_cap)
 
     def apply_head(roi_maps):
         if compute_dtype is not None:
@@ -321,10 +330,12 @@ def full_forward(model, frames_u8, resized_hw, canvas_hw, priors_per_level,
         reg, cls = model.head(roi_maps)
         return reg.float(), cls.float()
 
-    boxes, scores, classes, valid, roi_dropped, roi_truncated = roi_detections(
-        apply_head, pyramid, proposals, pvalid, used, model.num_classes, out_top=out_top)
-    scale = torch.tensor([w / nw, h / nh, w / nw, h / nh], dtype=torch.float32,
-                         device=x.device)
+    with span("rcnn:roi"):
+        boxes, scores, classes, valid, roi_dropped, roi_truncated = roi_detections(
+            apply_head, pyramid, proposals, pvalid, used, model.num_classes, out_top=out_top)
+        with sync_span(x.device):
+            scale = torch.tensor([w / nw, h / nh, w / nw, h / nh], dtype=torch.float32,
+                                 device=x.device)
     return (boxes * scale, scores, classes, valid, select_overflow, roi_dropped,
             roi_truncated)
 

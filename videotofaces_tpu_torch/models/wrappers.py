@@ -33,6 +33,7 @@ import torch
 from .. import config
 from ..parallel.mesh import gather_rows, map_shards, pad_to_multiple, split_rows
 from ..utils import weights as W
+from ..utils.profiling import span
 
 
 def _resolve_checkpoint(checkpoint):
@@ -121,40 +122,47 @@ class _Replicas:
         with config.model_call(), torch.inference_mode():
             return map_shards(self.mesh, fn, *parts, device=self.device)
 
-    def _submit_shards(self, arr, forward):
-        """Start a batch (``arr``, the padded uint8 batch): each shard's
-        block goes to its device from a pinned host buffer, ``forward(model,
-        x)`` runs on that device's current stream, and its outputs start
-        their copy back into pinned buffers, with one event recorded after
-        them. Returns the handle ``collect`` takes."""
+    def _submit_shards(self, frames, forward):
+        """Start a batch of uint8 ``frames``: padded to the batch size (the
+        ``detect:h2d`` span), each shard's block goes to its device from a
+        pinned host buffer, ``forward(model, x)`` runs on that device's
+        current stream, and its outputs start their copy back into pinned
+        buffers, with one event recorded after them (``detect:d2h``).
+        Returns the handle ``collect`` takes and the count of real frames."""
+        with span("detect:h2d"):
+            arr, n = pad_batch(frames, _round_batch(self.batch_size or len(frames), self.mesh))
+            xs = self._run(lambda dev, block: _to_device(block, dev),
+                           split_rows(arr, self.mesh))
 
-        def shard(dev, block):
-            x = _to_device(block, dev)
+        def shard(dev, x):
             out = forward(self.models[dev], x)
-            if dev.type != "cuda":
-                return out, None
-            host = _tree_map(_to_pinned, out)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(dev))
-            return host, done
+            with span("detect:d2h"):
+                if dev.type != "cuda":
+                    return out, None
+                host = _tree_map(_to_pinned, out)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+                return host, done
 
-        shards = self._run(shard, split_rows(arr, self.mesh))
+        shards = self._run(shard, xs)
         if len(shards) == 1:
-            return shards[0]
-        return _Shards(out for out, _ in shards), [done for _, done in shards]
+            return shards[0], n
+        return (_Shards(out for out, _ in shards), [done for _, done in shards]), n
 
 
 def _landed(out, done):
-    """A submitted batch's outputs once their copies have landed: one
-    shard's tree as it is, the trees of several joined in shard order."""
-    if isinstance(out, _Shards):
-        for d in done:
-            if d is not None:
-                d.synchronize()
-        return _tree_join(out)
-    if done is not None:
-        done.synchronize()
-    return out
+    """A submitted batch's outputs once their copies have landed (the
+    ``detect:wait`` span): one shard's tree as it is, the trees of several
+    joined in shard order."""
+    with span("detect:wait"):
+        if isinstance(out, _Shards):
+            for d in done:
+                if d is not None:
+                    d.synchronize()
+            return _tree_join(out)
+        if done is not None:
+            done.synchronize()
+        return out
 
 
 def pad_batch(frames, batch_size):
@@ -209,11 +217,9 @@ class MtcnnDetector(_Replicas):
         results start their copy back into pinned buffers; ``collect`` waits
         for them. The cascade's NMS loops sync with the host, so submit
         returns once the device work is queued past the last of them."""
-        bs = _round_batch(self.batch_size or len(frames), self.mesh)
-        arr, n = pad_batch(list(frames), bs)
-        return self._submit_shards(arr, lambda model, x: self.M.full_forward(
+        return self._submit_shards(list(frames), lambda model, x: self.M.full_forward(
             model, x, minsize=self.minsize, caps=self.caps,
-            compute_dtype=self.compute_dtype)), n
+            compute_dtype=self.compute_dtype))
 
     def collect(self, handle, return_landmarks=False):
         out, n = handle
@@ -279,8 +285,7 @@ class _BoxDetectorBase(_Replicas):
             nh, nw = self._resized_hw(h, w)
             frames = [cv2.resize(f, (nw, nh), interpolation=cv2.INTER_LINEAR)
                       for f in frames]
-        arr, n = pad_batch(frames, _round_batch(self.batch_size or len(frames), self.mesh))
-        return self._submit_shards(arr, lambda model, x: self._forward(model, x, h, w)), n
+        return self._submit_shards(frames, lambda model, x: self._forward(model, x, h, w))
 
     def collect(self, handle):
         """Wait for a batch; returns per-image (boxes [n, 4], scores [n],

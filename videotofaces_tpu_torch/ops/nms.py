@@ -13,11 +13,14 @@ every sort here is a STABLE descending sort (``lax.top_k`` and the stable
 The greedy recursion keep[i] = valid[i] and not any(j < i: keep[j] and
 iou[j, i] > thr) is solved by fixpoint iteration: one [K, K] masked
 reduction per step, converging in O(suppression-chain depth) steps. The
-loop checks convergence on the host (one sync per step).
+loop checks convergence on the host (one sync per step). Each solve is an
+``nms:fixpoint`` span and each check a ``host:sync`` span of the calling
+thread's recorder (utils/profiling.py).
 """
 
 import torch
 
+from ..utils.profiling import span
 from .boxes import box_iou_matrix
 
 
@@ -34,20 +37,23 @@ def _fixpoint_presorted(boxes, valid, iou_thr, plus_one=False, mode="iou",
     """Greedy keep mask for [B, K, 4] boxes ALREADY in descending score
     order; returns [B, K] bool in that order. With ``group_ids`` [B, K],
     only boxes of the same group suppress each other."""
-    k = boxes.shape[-2]
-    iou = box_iou_matrix(boxes, boxes, plus_one=plus_one, mode=mode)
-    later = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
-    suppresses = (iou > iou_thr) & later          # [.., j, i]: j (if kept) kills i
-    if group_ids is not None:
-        suppresses = suppresses & (group_ids[..., :, None] == group_ids[..., None, :])
-    keep = valid
-    for _ in range(k):
-        killed = torch.any(suppresses & keep[..., :, None], dim=-2)
-        new = valid & ~killed
-        if torch.equal(new, keep):
-            break
-        keep = new
-    return keep
+    with span("nms:fixpoint"):
+        k = boxes.shape[-2]
+        iou = box_iou_matrix(boxes, boxes, plus_one=plus_one, mode=mode)
+        later = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
+        suppresses = (iou > iou_thr) & later          # [.., j, i]: j (if kept) kills i
+        if group_ids is not None:
+            suppresses = suppresses & (group_ids[..., :, None] == group_ids[..., None, :])
+        keep = valid
+        for _ in range(k):
+            killed = torch.any(suppresses & keep[..., :, None], dim=-2)
+            new = valid & ~killed
+            with span("host:sync", 1):
+                converged = torch.equal(new, keep)
+            if converged:
+                break
+            keep = new
+        return keep
 
 
 def nms_keep_mask(boxes, scores, valid, iou_thr, group_ids=None, plus_one=False,
@@ -79,7 +85,9 @@ def nms_keep_mask_bucketed(boxes, scores, valid, iou_thr, bucket=256,
     _, order = _sort_desc(_masked(scores, valid), dim=1)
     sb = torch.gather(boxes, 1, order[..., None].expand(boxes.shape))
     sv = torch.gather(valid, 1, order)
-    if int(valid.sum(dim=1).max()) <= bucket:
+    with span("host:sync", 1):
+        fits = int(valid.sum(dim=1).max()) <= bucket
+    if fits:
         small = _fixpoint_presorted(sb[:, :bucket], sv[:, :bucket], iou_thr,
                                     plus_one, mode)
         keep_sorted = torch.nn.functional.pad(small, (0, k - bucket))

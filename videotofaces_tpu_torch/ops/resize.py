@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import sync_span
+
 
 def pool_bounds_1d(n_in, n_out):
     """Static adaptive-pool window boundaries along one axis: window i covers
@@ -137,8 +139,10 @@ def bilinear_resize_matmul(x, out_hw, canvas_hw=None):
         ch, cw = canvas_hw
         wh = np.pad(wh, ((0, ch - oh), (0, 0)))
         ww = np.pad(ww, ((0, cw - ow), (0, 0)))
-    wh = torch.from_numpy(wh).to(x.device)
-    ww = torch.from_numpy(ww).to(x.device)
+    with sync_span(x.device):
+        wh = torch.from_numpy(wh).to(x.device)
+    with sync_span(x.device):
+        ww = torch.from_numpy(ww).to(x.device)
     x = x.to(torch.float32)
     x = torch.einsum("oh,...hwc->...owc", wh, x)
     return torch.einsum("pw,...owc->...opc", ww, x)

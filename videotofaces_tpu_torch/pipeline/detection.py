@@ -12,8 +12,9 @@ drop near-duplicates against the previous 5 kept faces, write to
 Decode is prefetched on a background thread, the detector runs batches on
 the card with results copied back asynchronously (``submit``/``collect``),
 and face writes go through an async writer pool. Stage wall-times go into a
-StageTimer reported after each run; set V2F_PROFILE_DIR to also capture a
-``torch.profiler`` trace.
+StageTimer reported after each run, bound as the thread's recorder so that
+the layers below add their own spans and counters (utils/profiling.py); set
+V2F_PROFILE_DIR to also capture a ``torch.profiler`` trace.
 """
 
 import os
@@ -29,7 +30,7 @@ from ..hostio.video import frame_schedule
 from ..parallel import multihost as MH
 from ..utils.image import resize_keep_ratio
 from ..utils.pbar import tqdm
-from ..utils.profiling import StageTimer, trace
+from ..utils.profiling import StageTimer, count, recording, span, trace
 from . import boxfilter as BF
 from .dupes import remove_dupes_nearest, remove_dupes_overall
 from . import mesh_auto
@@ -74,7 +75,7 @@ def detect_faces(files, model, sampling, criteria, layout, hash_thr,
     timer = StageTimer()
     names, hashes = [], []
     crops = {} if collect_crops else None
-    with trace():
+    with recording(timer), trace():
         for k, path in enumerate(files):
             print("Processing " + path)
             # multi-file runs get a per-file "01_", "02_", ... name prefix
@@ -121,31 +122,41 @@ def detect_faces(files, model, sampling, criteria, layout, hash_thr,
 
 def process_video(path, model, sampling, criteria, layout, hash_thr, timer=None,
                   crops=None):
-    """One video through the detector. Returns (face filenames, their hashes)."""
-    reader = open_reader(path, sampling.reader)
-    if not reader.is_open():
-        print("ERROR: could not open video: %s" % path)
-        return [], []
-    indices, step = frame_schedule(reader.length, reader.fps, sampling.step,
-                                   sampling.fragment)
-    workers = decode_workers_default()
-    if workers > 1 and len(indices) > criteria.batch_size * workers:
-        # multi-core host: segmented parallel decode (order-preserving)
-        reader.close()
-        source = ParallelFrameSource(path, indices, step, criteria.batch_size,
-                                     sampling.area, sampling.reader, workers)
-    else:
-        source = PrefetchingFrameSource(reader, indices, step, criteria.batch_size,
-                                        sampling.area)
-    try:
-        return process_stream(source, len(indices), model, criteria, layout,
-                              hash_thr, timer, crops)
-    finally:
-        # join the decode thread(s) BEFORE releasing the reader: a worker may
-        # be mid-read, and cv2.VideoCapture is not safe against a concurrent
-        # release; stop() also unblocks a worker stuck on the prefetch queue
-        if source.stop():
-            reader.close()
+    """One video through the detector. Returns (face filenames, their hashes).
+    Records into ``timer`` (a new ``StageTimer`` by default) the clip's
+    edges, ``video:open`` and ``video:close``, and the decode workers'
+    counters, ``decode:frames`` and ``decode:worker_us``."""
+    timer = timer if timer is not None else StageTimer()
+    with recording(timer):
+        with span("video:open"):
+            reader = open_reader(path, sampling.reader)
+            if not reader.is_open():
+                print("ERROR: could not open video: %s" % path)
+                return [], []
+            indices, step = frame_schedule(reader.length, reader.fps, sampling.step,
+                                           sampling.fragment)
+            workers = decode_workers_default()
+            if workers > 1 and len(indices) > criteria.batch_size * workers:
+                # multi-core host: segmented parallel decode (order-preserving)
+                reader.close()
+                source = ParallelFrameSource(path, indices, step, criteria.batch_size,
+                                             sampling.area, sampling.reader, workers)
+            else:
+                source = PrefetchingFrameSource(reader, indices, step, criteria.batch_size,
+                                                sampling.area)
+        try:
+            return process_stream(source, len(indices), model, criteria, layout,
+                                  hash_thr, timer, crops)
+        finally:
+            # join the decode thread(s) BEFORE releasing the reader: a worker
+            # may be mid-read, and cv2.VideoCapture is not safe against a
+            # concurrent release; stop() also unblocks a worker stuck on the
+            # prefetch queue
+            with span("video:close"):
+                if source.stop():
+                    reader.close()
+            count("decode:frames", source.tally.frames)
+            count("decode:worker_us", source.tally.ns // 1000)
 
 
 def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=None,
@@ -154,17 +165,18 @@ def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=No
     model with ``submit``/``collect``. Returns (face filenames, their
     hashes)."""
     timer = timer if timer is not None else StageTimer()
-    if getattr(model, "batch_size", False) is None:
-        model.batch_size = criteria.batch_size  # one static batch shape per video
+    with recording(timer):
+        if getattr(model, "batch_size", False) is None:
+            model.batch_size = criteria.batch_size  # one static batch shape per video
 
-    names, hashes = [], []
-    pbar = tqdm(total=n_frames)
-    # In-flight queue depth: how many submitted batches ride ahead of the
-    # collect point, so their results' copies back to the host overlap later
-    # batches. Host memory held peaks at depth+1 batches of decoded frames.
-    depth = max(1, int(os.environ.get("V2F_PIPELINE_DEPTH", "8")))
-    inflight = deque()  # (handle, frames, indices) awaiting collect
-    with AsyncImageWriter() as writer:
+        names, hashes = [], []
+        pbar = tqdm(total=n_frames)
+        # In-flight queue depth: how many submitted batches ride ahead of the
+        # collect point, so their results' copies back to the host overlap later
+        # batches. Host memory held peaks at depth+1 batches of decoded frames.
+        depth = max(1, int(os.environ.get("V2F_PIPELINE_DEPTH", "8")))
+        inflight = deque()  # (handle, frames, indices) awaiting collect
+        writer = AsyncImageWriter()
 
         def finish(inflight):
             handle, b_frames, b_idx = inflight
@@ -178,22 +190,26 @@ def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=No
             pbar.update(len(b_idx))
             return new_hashes
 
-        it = iter(source)
-        while True:
-            with timer.stage("decode:wait"):
-                nxt = next(it, None)
-            if nxt is None:
-                break
-            bi, frames = nxt
-            with timer.stage("detect:submit", items=len(bi)):
-                handle = model.submit(frames)
-            inflight.append((handle, frames, bi))
-            if len(inflight) > depth:
+        try:
+            it = iter(source)
+            while True:
+                with timer.stage("decode:wait"):
+                    nxt = next(it, None)
+                if nxt is None:
+                    break
+                bi, frames = nxt
+                with timer.stage("detect:submit", items=len(bi)):
+                    handle = model.submit(frames)
+                inflight.append((handle, frames, bi))
+                if len(inflight) > depth:
+                    hashes = finish(inflight.popleft())
+            while inflight:
                 hashes = finish(inflight.popleft())
-        while inflight:
-            hashes = finish(inflight.popleft())
-    pbar.close()
-    return names, [h for (h, _) in hashes]
+        finally:
+            with timer.stage("writer:join"):   # the last crops' JPEG writes
+                writer.close()
+        pbar.close()
+        return names, [h for (h, _) in hashes]
 
 
 def process_frames_batch(frames, indices, detout, criteria, layout, hash_thr,

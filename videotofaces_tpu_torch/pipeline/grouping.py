@@ -38,7 +38,7 @@ from ..ops import distances as D
 from ..ops.kmeans import kmeans_fit
 from ..utils.image import crop_to_area
 from ..utils.pbar import tqdm
-from ..utils.profiling import StageTimer, trace
+from ..utils.profiling import StageTimer, recording, trace
 from . import mesh_auto
 from .dupes import skip_missing
 
@@ -119,7 +119,7 @@ def encode_faces(paths, model, batch_size, area, images=None):
         model.batch_size = batch_size
     timer = StageTimer()
     chunks = []
-    with trace(), tqdm(total=len(paths)) as pbar:
+    with recording(timer), trace(), tqdm(total=len(paths)) as pbar:
         reader = iter(_read_batches(paths, batch_size, images))
         while True:
             with timer.stage("encode:read"):  # wait on the prefetched read
@@ -206,14 +206,15 @@ def cluster_faces(paths, x, spec, out_dir, device=None):
 
     timer = StageTimer()
     runs = []  # (k, labels, silhouette, calinski-harabasz, davies-bouldin)
-    for k in candidates:
-        with timer.stage("cluster:kmeans k=%d" % k, items=len(paths)):
-            labels = kmeans_fit(x, k, random_state=spec.random_state, device=device)[0]
-        with timer.stage("cluster:scores"):
-            runs.append((k, labels,
-                         CS.silhouette_score(x, labels, k, device=device),
-                         CS.calinski_harabasz_score(x, labels, k, device=device),
-                         CS.davies_bouldin_score(x, labels, k, device=device)))
+    with recording(timer):
+        for k in candidates:
+            with timer.stage("cluster:kmeans k=%d" % k, items=len(paths)):
+                labels = kmeans_fit(x, k, random_state=spec.random_state, device=device)[0]
+            with timer.stage("cluster:scores"):
+                runs.append((k, labels,
+                             CS.silhouette_score(x, labels, k, device=device),
+                             CS.calinski_harabasz_score(x, labels, k, device=device),
+                             CS.davies_bouldin_score(x, labels, k, device=device)))
     if spec.write_log:
         _write_csv(osp.join(out_dir, "faces", "log_clustering.csv"),
                    "n_clusters,silhouette_score,calinski_harabasz_score,davies_bouldin_score",
