@@ -15,7 +15,7 @@ any failed, printing no result line):
 3. each kernel at main-path shapes, held against its plain PyTorch version
    on the same inputs and timed with CUDA events: ``pnet_level`` over the
    whole 16-level pyramid of a batch of 2 1080p frames at min face 5 in
-   bf16 plus two levels in f32, ``pool_crops`` at the stage-2 (2048 x 24 px)
+   bf16, and in f32 at batches of 2 and 4, ``pool_crops`` at the stage-2 (2048 x 24 px)
    and stage-3 (512 x 48 px) slot tables, ``resize_normalize`` (K5) on 128
    packed crops to 160 px (beside a per-image ``F.interpolate`` loop, the
    nearest library computation) and to 128 px with the ViT affine,
@@ -2572,7 +2572,7 @@ def main():
     # kernel checks: heads not scaled, so reg is O(1) and a wrong reg shows
     kmodel = M.MTCNN.from_jax(seeded_params(0, 2.0, reg_scale=1.0)).to(dev).eval()
 
-    with phase("3a. pnet_level kernel vs plain (bf16 pyramid, f32 levels)"):
+    with phase("3a. pnet_level kernel vs plain (bf16 pyramid, f32 pyramids)"):
         ms = plain_ms = bnd = 0.0
         err = {"reg": 0.0, "prob": 0.0}
         reg_max = 0.0
@@ -2618,19 +2618,27 @@ def main():
                                                        % TOLS["bfloat16"]["atol"])},
             shape="B=2 1080p min face 5, %d levels, bf16" % len(sizes))
         w32 = PK.pack_weights(kmodel.pnet, torch.float32).to(dev)
-        for level_hw in [(2593, 4609), (924, 1643)]:
-            got = PK.pnet_level(frames, level_hw, w32, torch.float32)
-            want = PK.pnet_level_plain(frames, level_hw, w32, torch.float32)
-            e = pnet_errors(got, want)
-            k_ms = cuda_ms(lambda: PK.pnet_level(frames, level_hw, w32, torch.float32), 3)
-            p_ms = cuda_ms(lambda: PK.pnet_level_plain(frames, level_hw, w32,
-                                                       torch.float32), 2)
-            bl, by = bound_ms(*pnet_work(level_hw, dtype="float32"), "float32")
-            log("   f32  level %-12s kernel %8.3f ms  plain %8.3f ms  bound %.4f ms (%s)  "
-                "max|err| reg %.3g (max|reg| %.3g) prob %.3g (tol %s)"
-                % (level_hw, k_ms, p_ms, bl, by, e["reg"], e["reg_max"], e["prob"],
-                   TOLS["float32"]))
-            check_pnet(got, want, "float32", e)
+        frames4 = torch.cat([frames, torch.from_numpy(seeded_frames(8)).to(dev)])
+        for fb in (frames, frames4):
+            b = fb.shape[0]
+            ms = plain_ms = bnd = 0.0
+            err = {"reg": 0.0, "prob": 0.0}
+            for level_hw in sizes:
+                got = PK.pnet_level(fb, level_hw, w32, torch.float32)
+                want = PK.pnet_level_plain(fb, level_hw, w32, torch.float32)
+                e = pnet_errors(got, want)
+                check_pnet(got, want, "float32", e)
+                err = {k: max(err[k], e[k]) for k in err}
+                del got, want
+                ms += cuda_ms(lambda: PK.pnet_level(fb, level_hw, w32, torch.float32), 3)
+                plain_ms += cuda_ms(lambda: PK.pnet_level_plain(fb, level_hw, w32,
+                                                                torch.float32), 1)
+                bnd += bound_ms(*pnet_work(level_hw, b=b, dtype="float32"), "float32")[0]
+            log("   f32  pyramid, batch %d: kernel %.3f ms, plain %.3f ms, bound %.4f ms "
+                "per batch, %.1f %% of the bound; max|err| reg %.3g prob %.3g "
+                "(tol %s)" % (b, ms, plain_ms, bnd, 100 * bnd / ms, err["reg"], err["prob"],
+                              TOLS["float32"]))
+        del frames4
 
     with phase("3b. pool_crops kernel vs plain (stage-2 and stage-3 slot tables)"):
         rng = np.random.default_rng(11)

@@ -76,14 +76,28 @@ def _frames(b, h, w, seed):
     return torch.from_numpy(rng.integers(0, 256, (b, h, w, 3)).astype(np.uint8)).cuda()
 
 
+# The live cell's float32 geometry (batch 4 of 1080p, min face 5): the three
+# upscaled levels, pooled inside the kernel, and the largest and the smallest
+# of the 13 pre-pooled ones.
+_CELL_LEVELS = [(2593, 4609), (1838, 3268), (1303, 2317), (924, 1643), (15, 27)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_pnet_level_kernel_matches_plain(dtype):
+@pytest.mark.parametrize("dtype,level_hw",
+                         [pytest.param(torch.float32, None, id="f32"),
+                          pytest.param(torch.bfloat16, None, id="bf16")]
+                         + [pytest.param(torch.float32, lv, id="f32-1080p-%dx%d" % lv)
+                            for lv in _CELL_LEVELS])
+def test_pnet_level_kernel_matches_plain(dtype, level_hw):
     _need_cuda()
-    frames = _frames(2, 120, 200, 9)
+    if level_hw is None:
+        frames = _frames(2, 120, 200, 9)
+        # upscaled (windows <= 2), downscaled, and the smallest level PNet takes
+        levels = [(289, 481), (85, 141), (15, 27)]
+    else:
+        frames, levels = _frames(4, 1080, 1920, 9), [level_hw]
     w = PK.pack_weights(TM.MTCNN.seeded(0).pnet, dtype).cuda()
-    # upscaled (windows <= 2), downscaled, and the smallest level PNet takes
-    for level_hw in [(289, 481), (85, 141), (15, 27)]:
+    for level_hw in levels:
         n0 = PK.pnet_level.launches
         reg, prob = PK.pnet_level(frames, level_hw, w, dtype)
         torch.cuda.synchronize()
@@ -97,17 +111,21 @@ def test_pnet_level_kernel_matches_plain(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_pnet_level_kernel_tile_edges(dtype):
-    """Levels at the tilings' edges (32 x 32 tiles in bf16, 16 x 16 in f32):
+    """Levels at the tilings' edges (32 x 32 tiles in bf16, 16 x 32 in f32):
     PH or PW of 1, 31, 32 and 33, the smallest level, on odd frame sizes,
-    pooled inside the kernel (upscaled) and beforehand (downscaled). A level
-    at half the frame has 2 px windows whose frame patch (148 rows x 444
-    bytes a tile) exceeds the tensor-core kernel's shared-memory patch area,
-    so it pools from device memory."""
+    pooled inside the kernel (upscaled) and beforehand (downscaled); in f32
+    also PH of 15, 16, 17 against PW of 31 .. 33 and 63 .. 65. A level at
+    half the frame has 2 px windows whose frame patch (444 bytes wide, 148
+    rows a bf16 tile, 84 an f32 one) exceeds either kernel's shared-memory
+    patch area, so it pools from device memory."""
     _need_cuda()
     w = PK.pack_weights(TM.MTCNN.seeded(0).pnet, dtype).cuda()
     cases = {(1, 30, 31): [(71, 73), (75, 74), (12, 75), (73, 12), (15, 27), (35, 33)],
              (2, 121, 203): [(291, 487), (85, 141), (15, 27), (12, 12)],
              (2, 148, 200): [(74, 100)]}
+    if dtype == torch.float32:
+        for levels in (cases[(1, 30, 31)], cases[(2, 121, 203)]):
+            levels += [(39, 139), (41, 137), (43, 135), (39, 75), (41, 73), (43, 71)]
     for (b, h, wd), levels in cases.items():
         frames = _frames(b, h, wd, 10 + h)
         for level_hw in levels:

@@ -57,9 +57,39 @@
 // the halo make ~2x the MMAs of the useful products; staging the level tile
 // and the epilogues, not the MMAs, take most of the kernel's time.
 //
-// Design, float32 (pnet_level_kernel): the parity path stays on the CUDA
-// cores (no TF32, no tensor cores): one block per 16x16 tile, level / pool1 /
-// c2 planes in 37 KB of shared memory, float32 FMAs per thread.
+// Design, float32 (pnet_level_kernel): the parity path, float32 FFMA on the
+// CUDA cores only (no TF32, no tensor cores). Its bound: a batch of 4 1080p
+// frames at min face 5 is ~350 GFLOP over 16 levels, 5.3 ms at 67 TFLOP/s
+// (the three upscaled levels 87 % of it); its bytes take ~0.26 ms. A first
+// design (one block per 16x16 tile, one conv3 position per thread) reached
+// ~15 % of that: each multiply-add loaded its weight from device memory
+// (an SM runs loads at a quarter of the FFMA rate), no input or weight was reused
+// from a register across positions, and the tiles recomputed 1.14x the work
+// in their halos. This design:
+//  - copies the 6,632 plain weights into shared memory once per block; the
+//    blocks are persistent (as many as fit the device, two per SM, each
+//    looping over tiles), and every weight is read as a 16-byte broadcast
+//    load that feeds 4 output channels at several positions;
+//  - blocks outputs in registers: conv1 takes two pool positions x four
+//    phases x 10 channels a thread, the position's 4x4 level patch of one
+//    kernel row in registers (720 FFMA a row for 69 loads); conv2 five
+//    positions x 16 channels (80 FFMA for 9 loads); conv3 eight positions x
+//    16 channels, two lanes sharing each position's 32 channels, over c2
+//    kept channels-last so that one 16-byte load brings 4 input channels
+//    (128 FFMA for 6 loads). The two lanes then trade halves, so that each
+//    runs the heads of 4 positions over all 32 channels;
+//  - tiles 16x32 outputs: pool1 20x36 and c2 18x34, 1.10x the work, in
+//    105 KB of shared memory (pool1 holds the tile's frame patch before it
+//    holds pool1; c2 lies over the level tile); ptxas: 255 registers, no
+//    spill, so two blocks of 128 threads fill an SM. A 1080p batch of 4 has
+//    23,328 tiles at its largest level and 3,016 at its largest pre-pooled
+//    one, enough for the 264 resident blocks; the smallest levels are one
+//    tile per image and cost a tile's latency.
+// Each output's sums keep their order (fmaf over ky, kx, ci from 0, then
+// bias, PReLU, the 2x2 max over the phases; the heads over ci), so reg and
+// prob equal the first design's bit for bit. On an H100 SXM at 700 W the
+// pyramid of a batch of 4 takes ~11.8 ms, ~45 % of the bound (the first
+// design ~34 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -152,133 +182,362 @@ pool_level_kernel(const uint8_t* __restrict__ frames, int H, int W, int SH,
 }
 
 // ---------------------------------------------------------------------------
-// float32: CUDA cores, 16x16 output tiles
+// float32: CUDA cores, 16x32 output tiles, two persistent blocks per SM
 
-constexpr int TH = 16, TW = 16;                  // output tile (conv3 positions)
-constexpr int C2H = TH + 2, C2W = TW + 2;        // conv2 tile
-constexpr int P1H = TH + 4, P1W = TW + 4;        // pool1 tile
-constexpr int LH = 2 * P1H + 2, LW = 2 * P1W + 2;  // level tile
-constexpr int NTHREADS = TH * TW;
-constexpr int LEVEL_ELEMS = 3 * LH * LW;
+constexpr int TH = 16, TW = 32;                    // output tile (conv3 positions)
+constexpr int C2H = TH + 2, C2W = TW + 2;          // conv2 tile, 18x34
+constexpr int P1H = TH + 4, P1W = TW + 4;          // pool1 tile, 20x36
+constexpr int LH = 2 * P1H + 2, LW = 2 * P1W + 2;  // level tile, 42x74
+constexpr int NTHREADS = 128;
+constexpr int C2_PER = (C2H * C2W + NTHREADS - 1) / NTHREADS;   // 5
+constexpr int P1_PAIRS = P1H * P1W / 2;   // conv1 work items of two pool positions
+// shared memory, in floats: the plain weights at W_OFF (so that the rows of
+// w2 and w3 are 16-byte aligned, those of w1 and the heads 8-byte), the
+// level tile (c2 over it once pool1 exists), pool1 (the frame patch before
+// the level tile exists), and the level's window bounds (ints)
+constexpr int W_OFF = 2;
+constexpr int MAP_OFF = (W_OFF + NPLAIN + 3) / 4 * 4;
+constexpr int C2PX = 20;   // c2 pixel stride (floats): 8 pixels' 16-byte words on 32 banks
+constexpr int LVL_ELEMS = 3 * LH * LW, C2_ELEMS = C2PX * C2H * C2W;
+constexpr int P1_OFF = MAP_OFF + (LVL_ELEMS > C2_ELEMS ? LVL_ELEMS : C2_ELEMS);
 constexpr int P1_ELEMS = 10 * P1H * P1W;
-static_assert(16 * C2H * C2W <= LEVEL_ELEMS, "c2 must fit the level tile");
+constexpr int BND_OFF = P1_OFF + P1_ELEMS;   // ys[LH], ye[LH], xs[LW], xe[LW]
+constexpr int SMEM_BYTES = (BND_OFF + 2 * LH + 2 * LW) * 4;
+static_assert((W_OFF + OW2) % 4 == 0 && (W_OFF + OW3) % 4 == 0, "w2, w3 rows 16-byte aligned");
+static_assert((W_OFF + OW1) % 2 == 0 && (W_OFF + OWH) % 2 == 0 && NPLAIN % 2 == 0,
+              "w1, head rows 8-byte aligned");
+static_assert(LW % 2 == 0 && (LH * LW) % 2 == 0 && MAP_OFF % 4 == 0, "level pairs 8-byte aligned");
+static_assert(TH == 4 * (NTHREADS / 32) && TW == 32, "stage 4: a warp takes 4 rows of 32");
+static_assert((P1H * P1W) % 2 == 0, "conv1 items are pairs");
 
-__global__ void __launch_bounds__(NTHREADS)
-pnet_level_kernel(const uint8_t* __restrict__ frames, int H, int W, int SH,
+// acc[p][o] = sum over (ky, kx, ci), in that order from 0, of fmaf(w, x):
+// a 3x3 conv at NPOS positions (src[p]: the position's top-left tap in
+// plane 0 of a map with row stride SRC_W and plane stride PLANE) for NOUT
+// output channels, weights HWIO in shared memory. Each input value feeds
+// NOUT products, each 16-byte weight load 4 x NPOS.
+template <int NPOS, int NOUT, int CIN, int SRC_W, int PLANE>
+__device__ __forceinline__ void conv3x3(const float* (&src)[NPOS], const float* w,
+                                        float (&acc)[NPOS][NOUT]) {
+#pragma unroll
+  for (int p = 0; p < NPOS; ++p)
+#pragma unroll
+    for (int o = 0; o < NOUT; ++o) acc[p][o] = 0.0f;
+#pragma unroll 1
+  for (int ky = 0; ky < 3; ++ky)
+#pragma unroll 1
+    for (int kx = 0; kx < 3; ++kx) {
+      const int toff = ky * SRC_W + kx;
+      const float4* wt = reinterpret_cast<const float4*>(w + (ky * 3 + kx) * CIN * NOUT);
+#pragma unroll
+      for (int ci = 0; ci < CIN; ++ci) {
+        float x[NPOS];
+#pragma unroll
+        for (int p = 0; p < NPOS; ++p) x[p] = src[p][ci * PLANE + toff];
+#pragma unroll
+        for (int g = 0; g < NOUT / 4; ++g) {
+          const float4 v = wt[ci * (NOUT / 4) + g];
+#pragma unroll
+          for (int p = 0; p < NPOS; ++p) {
+            acc[p][4 * g] = fmaf(v.x, x[p], acc[p][4 * g]);
+            acc[p][4 * g + 1] = fmaf(v.y, x[p], acc[p][4 * g + 1]);
+            acc[p][4 * g + 2] = fmaf(v.z, x[p], acc[p][4 * g + 2]);
+            acc[p][4 * g + 3] = fmaf(v.w, x[p], acc[p][4 * g + 3]);
+          }
+        }
+      }
+    }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 2)
+pnet_level_kernel(const uint8_t* __restrict__ frames, int B, int H, int W, int SH,
                   int SW, const float* __restrict__ pooled,
                   const float* __restrict__ wts, float* __restrict__ reg,
                   float* __restrict__ prob) {
-  __shared__ float smem[LEVEL_ELEMS + P1_ELEMS];
-  float* lvl = smem;                 // [3][LH][LW]
-  float* p1 = smem + LEVEL_ELEMS;    // [10][P1H][P1W]
-  float* c2 = smem;                  // [16][C2H][C2W], aliases lvl after stage 2
+  extern __shared__ __align__(16) float shm[];
+  float* ws = shm + W_OFF;      // the plain weights, packed order
+  float* lvl = shm + MAP_OFF;   // [3][LH][LW]
+  float* c2 = lvl;              // [C2H][C2W][C2PX], over the level after stage 2
+  float* p1 = shm + P1_OFF;     // [10][P1H][P1W]
+  int* bnd = reinterpret_cast<int*>(shm + BND_OFF);
 
-  const int b = blockIdx.z;
-  const int oy0 = blockIdx.y * TH, ox0 = blockIdx.x * TW;
+  const int tid = threadIdx.x;
   const int ch = SH - 2, cw = SW - 2;               // conv1 output size
   const int PH = (ch + 1) / 2 - 4, PW = (cw + 1) / 2 - 4;
-  const uint8_t* img = frames + (size_t)b * H * W * 3;
+  const int ntx = (PW + TW - 1) / TW, nty = (PH + TH - 1) / TH, ntiles = ntx * nty * B;
 
-  // stage 1: pooled, normalized level tile (rows 2*oy0.., cols 2*ox0..),
-  // read from the pre-pooled level where there is one, else pooled here
-  // (windows of at most 2x2 frame pixels)
-  for (int i = threadIdx.x; i < LH * LW; i += NTHREADS) {
-    const int r = i / LW, c = i % LW;
-    const int ly = 2 * oy0 + r, lx = 2 * ox0 + c;
-    const bool inside = ly < SH && lx < SW;
+  // the weights, once per block (visible after stage 1's barrier)
+#pragma unroll 4
+  for (int i = tid; i < NPLAIN / 2; i += NTHREADS)
+    reinterpret_cast<float2*>(ws)[i] = __ldg(reinterpret_cast<const float2*>(wts) + i);
+
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int b = tile / (ntx * nty), t = tile % (ntx * nty);
+    const int oy0 = (t / ntx) * TH, ox0 = (t % ntx) * TW;
+    const uint8_t* img = frames + (size_t)b * H * W * 3;
+
+    // stage 1: pooled, normalized level tile (rows 2*oy0.., cols 2*ox0..),
+    // zero outside the level; read from the pre-pooled level where there is
+    // one, else pooled here (windows of at most 2x2 frame pixels) from the
+    // tile's frame patch, staged in pool1's space when it fits
     if (pooled != nullptr) {
-      const float* px = pooled + (((size_t)b * SH + ly) * SW + lx) * 4;
-      for (int k = 0; k < 3; ++k) lvl[(k * LH + r) * LW + c] = inside ? px[k] : 0.0f;
-      continue;
-    }
-    int s[3] = {0, 0, 0}, area = 1;
-    if (inside) {
-      const int ys = win_start(ly, H, SH), ye = win_end(ly, H, SH);
-      const int xs = win_start(lx, W, SW), xe = win_end(lx, W, SW);
-      area = (ye - ys) * (xe - xs);
-      for (int y = ys; y < ye; ++y)
-        for (int x = xs; x < xe; ++x) add_rgb(img + ((size_t)y * W + x) * 3, s);
-    }
-    for (int k = 0; k < 3; ++k)
-      lvl[(k * LH + r) * LW + c] = inside ? normalized(s[k], area) : 0.0f;
-  }
-  __syncthreads();
-
-  // stage 2: conv1 + PReLU + ceil-mode 2x2 max-pool (valid conv1 rows and
-  // columns only) -> pool1 tile
-  for (int i = threadIdx.x; i < P1H * P1W; i += NTHREADS) {
-    const int pr = i / P1W, pc = i % P1W;
-    const int gy = oy0 + pr, gx = ox0 + pc;
-    float m[10];
-    for (int o = 0; o < 10; ++o) m[o] = -CUDART_INF_F;
-    bool any = false;
-    for (int dy = 0; dy < 2; ++dy) {
-      for (int dx = 0; dx < 2; ++dx) {
-        if (2 * gy + dy >= ch || 2 * gx + dx >= cw) continue;
-        any = true;
-        float acc[10];
-        for (int o = 0; o < 10; ++o) acc[o] = 0.0f;
-        for (int ky = 0; ky < 3; ++ky)
-          for (int kx = 0; kx < 3; ++kx)
-            for (int ci = 0; ci < 3; ++ci) {
-              const float x = lvl[(ci * LH + 2 * pr + dy + ky) * LW + 2 * pc + dx + kx];
-              const float* w = wts + OW1 + ((ky * 3 + kx) * 3 + ci) * 10;
-              for (int o = 0; o < 10; ++o) acc[o] = fmaf(w[o], x, acc[o]);
-            }
-        for (int o = 0; o < 10; ++o)
-          m[o] = fmaxf(m[o], prelu(acc[o] + wts[OB1 + o], wts[OA1 + o]));
+      const float4* src = reinterpret_cast<const float4*>(pooled) + (size_t)b * SH * SW;
+#pragma unroll 4
+      for (int i = tid; i < LH * LW; i += NTHREADS) {
+        const int r = i / LW, c = i % LW;
+        const int ly = 2 * oy0 + r, lx = 2 * ox0 + c;
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (ly < SH && lx < SW) v = __ldg(src + (size_t)ly * SW + lx);
+        lvl[r * LW + c] = v.x;
+        lvl[(LH + r) * LW + c] = v.y;
+        lvl[(2 * LH + r) * LW + c] = v.z;
       }
-    }
-    // a pool position with no valid conv1 input lies outside the level's
-    // pool1 map and feeds only outputs that are never written
-    for (int o = 0; o < 10; ++o) p1[(o * P1H + pr) * P1W + pc] = any ? m[o] : 0.0f;
-  }
-  __syncthreads();
-
-  // stage 3: conv2 + PReLU -> c2 tile; each work item is one position and
-  // one half (8) of the 16 output channels
-  for (int i = threadIdx.x; i < 2 * C2H * C2W; i += NTHREADS) {
-    const int half = i / (C2H * C2W), j = i % (C2H * C2W);
-    const int r = j / C2W, c = j % C2W;
-    float acc[8];
-    for (int o = 0; o < 8; ++o) acc[o] = 0.0f;
-    for (int ky = 0; ky < 3; ++ky)
-      for (int kx = 0; kx < 3; ++kx)
-        for (int ci = 0; ci < 10; ++ci) {
-          const float x = p1[(ci * P1H + r + ky) * P1W + c + kx];
-          const float* w = wts + OW2 + ((ky * 3 + kx) * 10 + ci) * 16 + half * 8;
-          for (int o = 0; o < 8; ++o) acc[o] = fmaf(w[o], x, acc[o]);
+    } else {
+      for (int i = tid; i < LH + LW; i += NTHREADS) {
+        const bool col = i >= LH;
+        const int k = col ? i - LH : i, n = col ? LW : LH;
+        const int l = (col ? 2 * ox0 : 2 * oy0) + k, n_in = col ? W : H, n_out = col ? SW : SH;
+        int* bk = bnd + (col ? 2 * LH : 0);
+        bk[k] = win_start(l, n_in, n_out);
+        bk[n + k] = win_end(l, n_in, n_out);
+      }
+      __syncthreads();
+      const int* ys = bnd;
+      const int* ye = bnd + LH;
+      const int* xs = bnd + 2 * LH;
+      const int* xe = bnd + 2 * LH + LW;
+      const uint8_t* src = img;
+      int pitch = W * 3, fy0 = 0, fx0 = 0;
+      const int r_last = min(LH, SH - 2 * oy0) - 1, c_last = min(LW, SW - 2 * ox0) - 1;
+      const int rows = ye[r_last] - ys[0], bytes = (xe[c_last] - xs[0]) * 3;
+      if (rows * bytes <= P1_ELEMS * 4) {
+        fy0 = ys[0];
+        fx0 = xs[0];
+        uint8_t* patch = reinterpret_cast<uint8_t*>(p1);
+        const uint8_t* g = img + (size_t)fy0 * pitch + 3 * fx0;
+        for (int y = tid / 32; y < rows; y += NTHREADS / 32)
+          for (int x = tid % 32; x < bytes; x += 32)
+            patch[y * bytes + x] = __ldg(g + (size_t)y * pitch + x);
+        __syncthreads();
+        src = patch;
+        pitch = bytes;
+      }
+      for (int i = tid; i < LH * LW; i += NTHREADS) {
+        const int r = i / LW, c = i % LW;
+        float v[3] = {0.0f, 0.0f, 0.0f};
+        if (2 * oy0 + r < SH && 2 * ox0 + c < SW) {
+          // a window of at most 2x2 pixels: its four corners count each of
+          // its pixels 4 / area times, so a quarter of their sum is the
+          // exact mean, as normalized() divides it
+          const uint8_t* q = src + (size_t)(ys[r] - fy0) * pitch + 3 * (xs[c] - fx0);
+          const size_t dyb = (size_t)(ye[r] - 1 - ys[r]) * pitch;
+          const int dxb = 3 * (xe[c] - 1 - xs[c]);
+          int s[3] = {0, 0, 0};
+          add_rgb(q, s);
+          add_rgb(q + dxb, s);
+          add_rgb(q + dyb, s);
+          add_rgb(q + dyb + dxb, s);
+          for (int k = 0; k < 3; ++k) v[k] = ((float)s[k] * 0.25f - 127.5f) / 128.0f;
         }
-    for (int o = 0; o < 8; ++o) {
-      const int oc = half * 8 + o;
-      c2[(oc * C2H + r) * C2W + c] = prelu(acc[o] + wts[OB2 + oc], wts[OA2 + oc]);
-    }
-  }
-  __syncthreads();
-
-  // stage 4: conv3 + PReLU + heads, one output position per thread
-  const int r = threadIdx.x / TW, c = threadIdx.x % TW;
-  float acc[32];
-  for (int o = 0; o < 32; ++o) acc[o] = 0.0f;
-  for (int ky = 0; ky < 3; ++ky)
-    for (int kx = 0; kx < 3; ++kx)
-      for (int ci = 0; ci < 16; ++ci) {
-        const float x = c2[(ci * C2H + r + ky) * C2W + c + kx];
-        const float* w = wts + OW3 + ((ky * 3 + kx) * 16 + ci) * 32;
-        for (int o = 0; o < 32; ++o) acc[o] = fmaf(w[o], x, acc[o]);
+        for (int k = 0; k < 3; ++k) lvl[(k * LH + r) * LW + c] = v[k];
       }
-  float hv[6];
-  for (int o = 0; o < 6; ++o) hv[o] = 0.0f;
-  for (int ci = 0; ci < 32; ++ci) {
-    const float v = prelu(acc[ci] + wts[OB3 + ci], wts[OA3 + ci]);
-    for (int o = 0; o < 6; ++o) hv[o] = fmaf(wts[OWH + ci * 6 + o], v, hv[o]);
-  }
-  const int oy = oy0 + r, ox = ox0 + c;
-  if (oy < PH && ox < PW) {
-    for (int o = 0; o < 4; ++o)
-      reg[(((size_t)b * 4 + o) * PH + oy) * PW + ox] = hv[o] + wts[OBH + o];
-    const float d = (hv[5] + wts[OBH + 5]) - (hv[4] + wts[OBH + 4]);
-    prob[((size_t)b * PH + oy) * PW + ox] = 1.0f / (1.0f + expf(-d));
+    }
+    __syncthreads();
+
+    // stage 2: conv1 + PReLU + ceil-mode 2x2 max-pool (valid conv1 rows and
+    // columns only) -> pool1 tile. A work item is two pool positions, each
+    // with its four conv1 phases (dy, dx) in registers; per kernel row ky a
+    // position's level rows 2py+ky, 2py+ky+1, columns 2px..2px+3, feed all
+    // four phases for every (kx, ci).
+    for (int it = tid; it < P1_PAIRS; it += NTHREADS) {
+      const float* base[2];
+      int gy[2], gx[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int q = it + j * P1_PAIRS, pr = q / P1W, pc = q % P1W;
+        base[j] = lvl + 2 * pr * LW + 2 * pc;
+        gy[j] = oy0 + pr;
+        gx[j] = ox0 + pc;
+      }
+      float acc[2][4][10];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+#pragma unroll
+          for (int o = 0; o < 10; ++o) acc[j][f][o] = 0.0f;
+#pragma unroll 1
+      for (int ky = 0; ky < 3; ++ky) {
+        float x[2][3][2][4];   // [position][ci][row dy][column 0..3]
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int ci = 0; ci < 3; ++ci)
+#pragma unroll
+            for (int dy = 0; dy < 2; ++dy) {
+              const float* row = base[j] + (ci * LH + ky + dy) * LW;
+              const float2 u = *reinterpret_cast<const float2*>(row);
+              const float2 v = *reinterpret_cast<const float2*>(row + 2);
+              x[j][ci][dy][0] = u.x;
+              x[j][ci][dy][1] = u.y;
+              x[j][ci][dy][2] = v.x;
+              x[j][ci][dy][3] = v.y;
+            }
+        const float* wk = ws + OW1 + ky * 3 * 3 * 10;
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+          for (int ci = 0; ci < 3; ++ci) {
+            float w[10];
+#pragma unroll
+            for (int o = 0; o < 10; o += 2) {
+              const float2 u = *reinterpret_cast<const float2*>(wk + (kx * 3 + ci) * 10 + o);
+              w[o] = u.x;
+              w[o + 1] = u.y;
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+                for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+                  for (int o = 0; o < 10; ++o)
+                    acc[j][2 * dy + dx][o] =
+                        fmaf(w[o], x[j][ci][dy][dx + kx], acc[j][2 * dy + dx][o]);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float m[10];
+#pragma unroll
+        for (int o = 0; o < 10; ++o) m[o] = -CUDART_INF_F;
+        bool any = false;
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 2; ++dx) {
+            if (2 * gy[j] + dy >= ch || 2 * gx[j] + dx >= cw) continue;
+            any = true;
+#pragma unroll
+            for (int o = 0; o < 10; ++o)
+              m[o] = fmaxf(m[o], prelu(acc[j][2 * dy + dx][o] + ws[OB1 + o], ws[OA1 + o]));
+          }
+        // a pool position with no valid conv1 input lies outside the level's
+        // pool1 map and feeds only outputs that are never written
+        const int q = it + j * P1_PAIRS;
+#pragma unroll
+        for (int o = 0; o < 10; ++o) p1[o * P1H * P1W + q] = any ? m[o] : 0.0f;
+      }
+    }
+    __syncthreads();
+
+    // stage 3: conv2 + PReLU -> c2 tile, C2_PER positions x 16 channels a
+    // thread
+    {
+      const float* src[C2_PER];
+      int q[C2_PER];
+#pragma unroll
+      for (int k = 0; k < C2_PER; ++k) {
+        q[k] = tid + k * NTHREADS;
+        const int qq = min(q[k], C2H * C2W - 1);
+        src[k] = p1 + (qq / C2W) * P1W + qq % C2W;
+      }
+      float acc[C2_PER][16];
+      conv3x3<C2_PER, 16, 10, P1W, P1H * P1W>(src, ws + OW2, acc);
+#pragma unroll
+      for (int k = 0; k < C2_PER; ++k) {
+        if (q[k] >= C2H * C2W) continue;
+#pragma unroll
+        for (int o = 0; o < 16; o += 4)
+          *reinterpret_cast<float4*>(c2 + q[k] * C2PX + o) = make_float4(
+              prelu(acc[k][o] + ws[OB2 + o], ws[OA2 + o]),
+              prelu(acc[k][o + 1] + ws[OB2 + o + 1], ws[OA2 + o + 1]),
+              prelu(acc[k][o + 2] + ws[OB2 + o + 2], ws[OA2 + o + 2]),
+              prelu(acc[k][o + 3] + ws[OB2 + o + 3], ws[OA2 + o + 3]));
+      }
+    }
+    __syncthreads();
+
+    // stage 4: conv3 + PReLU + heads. Lanes 2j and 2j + 1 of warp w share
+    // 8 positions (rows 4w .. 4w + 3, columns j and j + 16), the even lane
+    // computing channels 0..15, the odd lane 16..31; each 16-byte load of c2
+    // brings 4 input channels of one position. Then the lanes trade halves:
+    // lane h keeps column j + 16h, all 32 channels, for the heads.
+    {
+      const int lane = tid & 31, h = lane & 1, j = lane >> 1, r0 = (tid >> 5) * 4;
+      float acc[8][16];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int o = 0; o < 16; ++o) acc[k][o] = 0.0f;
+      const float* xb = c2 + (r0 * C2W + j) * C2PX;
+#pragma unroll 1
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll 1
+        for (int kx = 0; kx < 3; ++kx) {
+          const float* xt = xb + (ky * C2W + kx) * C2PX;
+          const float4* wt =
+              reinterpret_cast<const float4*>(ws + OW3 + (ky * 3 + kx) * 16 * 32 + 16 * h);
+#pragma unroll 2
+          for (int cq = 0; cq < 4; ++cq) {
+            float4 x[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+              x[k] = *reinterpret_cast<const float4*>(
+                  xt + ((k & 3) * C2W + 16 * (k >> 2)) * C2PX + 4 * cq);
+#pragma unroll
+            for (int cj = 0; cj < 4; ++cj)
+#pragma unroll
+              for (int g = 0; g < 4; ++g) {
+                const float4 v = wt[(4 * cq + cj) * 8 + g];
+#pragma unroll
+                for (int k = 0; k < 8; ++k) {
+                  const float xv = cj == 0 ? x[k].x : cj == 1 ? x[k].y : cj == 2 ? x[k].z : x[k].w;
+                  acc[k][4 * g] = fmaf(v.x, xv, acc[k][4 * g]);
+                  acc[k][4 * g + 1] = fmaf(v.y, xv, acc[k][4 * g + 1]);
+                  acc[k][4 * g + 2] = fmaf(v.z, xv, acc[k][4 * g + 2]);
+                  acc[k][4 * g + 3] = fmaf(v.w, xv, acc[k][4 * g + 3]);
+                }
+              }
+          }
+        }
+      // after the trade, lane h holds position (r0 + k, j + 16h): channel c in
+      // acc[k][c], channel 16 + c in acc[4 + k][c]
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const float got = __shfl_xor_sync(0xffffffffu, h ? acc[k][c] : acc[4 + k][c], 1);
+          if (h) acc[k][c] = got;
+          else acc[4 + k][c] = got;
+        }
+      float hv[4][6];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int o = 0; o < 6; ++o) hv[k][o] = 0.0f;
+#pragma unroll
+      for (int ci = 0; ci < 32; ++ci) {
+        const float bs = ws[OB3 + ci], sl = ws[OA3 + ci];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float v = prelu((ci < 16 ? acc[k][ci] : acc[4 + k][ci - 16]) + bs, sl);
+#pragma unroll
+          for (int o = 0; o < 6; ++o) hv[k][o] = fmaf(ws[OWH + ci * 6 + o], v, hv[k][o]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int oy = oy0 + r0 + k, ox = ox0 + j + 16 * h;
+        if (oy >= PH || ox >= PW) continue;
+#pragma unroll
+        for (int o = 0; o < 4; ++o)
+          reg[(((size_t)b * 4 + o) * PH + oy) * PW + ox] = hv[k][o] + ws[OBH + o];
+        const float d = (hv[k][5] + ws[OBH + 5]) - (hv[k][4] + ws[OBH + 4]);
+        prob[((size_t)b * PH + oy) * PW + ox] = 1.0f / (1.0f + expf(-d));
+      }
+    }
+    __syncthreads();   // the next tile overwrites the maps
   }
 }
 
@@ -668,9 +927,29 @@ extern "C" int pnet_level_launch(const void* frames, int B, int H, int W,
     const int e = prepool<float>(frames, B, H, W, SH, SW, pooled, s);
     if (e != 0) return e;
   }
-  const dim3 grid((PW + TW - 1) / TW, (PH + TH - 1) / TH, B);
-  pnet_level_kernel<<<grid, NTHREADS, 0, s>>>(
-      (const uint8_t*)frames, H, W, SH, SW, (const float*)pooled,
-      (const float*)weights, (float*)reg, (float*)prob);
+  // persistent blocks, as many as the device holds at once: its shared-memory
+  // limit is raised and its occupancy read once per device
+  static std::atomic<int> resident[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  int blocks = resident[dev].load();
+  if (blocks == 0) {
+    int per_sm = 0, sms = 0;
+    e = cudaFuncSetAttribute(pnet_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BYTES);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pnet_level_kernel, NTHREADS,
+                                                        SMEM_BYTES);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    blocks = (per_sm > 0 ? per_sm : 1) * sms;
+    resident[dev].store(blocks);
+  }
+  const long long tiles = (long long)((PW + TW - 1) / TW) * ((PH + TH - 1) / TH) * B;
+  pnet_level_kernel<<<(unsigned)(tiles < blocks ? tiles : blocks), NTHREADS, SMEM_BYTES, s>>>(
+      (const uint8_t*)frames, B, H, W, SH, SW, (const float*)pooled, (const float*)weights,
+      (float*)reg, (float*)prob);
   return (int)cudaGetLastError();
 }
