@@ -2,9 +2,9 @@
 chosen: seeded weights, the heads calibrated (``models.calibrate_heads``)
 to a grid of candidates per frame, then the program's detector on the first
 sampled frames of the video mix, reporting per setting the faces the box
-filter keeps per frame, the detector's capacity counters (MTCNN's stage
-counts against its buffers) and the calibration's values per layer (the
-configuration's ``seed0`` records those of seed 0).
+filter keeps per frame, the detector's stage counts where its module reads
+them (MTCNN's, against its buffers) and the calibration's values per layer
+(the configuration's ``seed0`` records those of seed 0).
 
     python3 portbench/calibrate.py <config> [--seeds 0 1 2] [--frames 8] \
         [--grid LAYER=K1,K2,...]...
@@ -49,6 +49,7 @@ def main(argv):
         grids[layer] = [float(v) for v in values.split(",")]
     specs = cfg["detector"]["calibrate"]
     axes = [grids.get(s["layer"], [s["per_frame"]]) for s in specs]
+    stage_counts = getattr(models.detector(cfg), "stage_counts", None)
     for seed in args.seeds:
         with tempfile.TemporaryDirectory() as tmp:
             clips = traffic.make_clips(tmp, seed, tr["clip"])
@@ -70,17 +71,16 @@ def main(argv):
                 out = det.collect(h)
                 per = list(zip(out[0], out[1])) if isinstance(out, tuple) else \
                     [(o[:, :4], o[:, 4]) for o in out]
-                if cfg["detector"]["model"] == "mtcnn":
-                    for k, v in h[0][0][4].items():
-                        caps[k] = max(caps.get(k, 0), int(v.max()))
+                counts = stage_counts(h) if stage_counts else None
+                for k, v in (counts or {}).items():
+                    caps[k] = max(caps.get(k, 0), int(v.max()))
                 for f, (b, sc) in zip(frames[s:s + 4], per):
                     raw.append(len(sc))
                     kept.append(int(RP.passes(RP.round_out(b), sc, f.shape[:2], crit["min_score"],
                                               crit["min_size"], crit["min_border"]).sum()))
             print("seed %d per frame %s: detections/frame %.1f kept/frame %.2f (min %d max %d) %s"
-                  % (seed, list(means), np.mean(raw), np.mean(kept), min(kept), max(kept),
-                     {k: caps[k] for k in ("stage1_scale_max", "cross_in", "stage2", "stage3")
-                      if k in caps}), flush=True)
+                  % (seed, list(means), np.mean(raw), np.mean(kept), min(kept), max(kept), caps),
+                  flush=True)
             print("seed %d calibration %s" % (seed, json.dumps(calibration)), flush=True)
         del det
         torch.cuda.empty_cache()

@@ -23,18 +23,20 @@ import time
 import numpy as np
 import torch
 
-from .. import flops, judge, models, precision, registry, seeding, traffic
+from .. import judge, models, precision, registry, seeding, traffic
 from ..reference import pipeline as RP
 from ..spans import SpanRecorder
 
 
 class RecordingDetector:
     """The program's detector as ``process_stream`` sees it; counts the
-    frames that come back from ``collect`` and, while ``records`` is a
-    list, keeps each frame's (boxes, scores) and MTCNN's stage counts."""
+    frames that come back from ``collect``, keeps each batch's stage counts
+    where the detector's module reads them (``stage_counts``) and, while
+    ``records`` is a list, each frame's (boxes, scores)."""
 
-    def __init__(self, det):
+    def __init__(self, det, stage_counts=None):
         self.det = det
+        self.read_counts = stage_counts
         self.frames = 0
         self.batches = 0
         self.records = None
@@ -61,10 +63,10 @@ class RecordingDetector:
             per_frame = list(zip(out[0], out[1]))
         else:
             per_frame = [(d[:, :4], d[:, 4]) for d in out]
-            counts = handle[0][0][4] if isinstance(handle[0][0], tuple) else None
-            if isinstance(counts, dict):
-                n = len(per_frame)
-                self.stage_counts.append({k: v[:n].numpy().copy() for k, v in counts.items()})
+        counts = self.read_counts(handle) if self.read_counts else None
+        if counts is not None:
+            n = len(per_frame)
+            self.stage_counts.append({k: v[:n].copy() for k, v in counts.items()})
         self.frames += len(per_frame)
         self.batches += 1
         if self.records is not None:
@@ -104,7 +106,8 @@ def setup(run):
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    det = RecordingDetector(models.program_detector(cfg, run.state["det_state"], dev))
+    det = RecordingDetector(models.program_detector(cfg, run.state["det_state"], dev),
+                            getattr(models.detector(cfg), "stage_counts", None))
     run.state["det"] = det
     run.state["specs"] = _specs(run)
     # warm-up: the first clip through the pipeline, every batch shape of
@@ -152,9 +155,9 @@ def window(run):
     run.counts.update(frames=det.frames, batches=det.batches, clips=k)
     if det.stage_counts:
         peak = {key: int(max(c[key].max() for c in det.stage_counts))
-                for key in ("stage1_scale_max", "cross_in", "stage2", "stage3")}
-        print("portbench: MTCNN stage counts, most per image in the window: %s" % peak,
-              file=sys.stderr)
+                for key in det.stage_counts[0]}
+        print("portbench: %s stage counts, most per image in the window: %s"
+              % (run.config["detector"]["model"], peak), file=sys.stderr)
     print("portbench: clip runs %s" % json.dumps(clip_report(run.spans, len(clips))),
           file=sys.stderr)
     run.attempted = det.frames
@@ -250,48 +253,17 @@ def control(run):
 
 
 def work(run):
-    """The window's model FLOPs and the kernels' work, for the readers:
-    ``model_flops`` (the detector's convolutions and dense layers over the
-    window's frames; MTCNN's RNet and ONet at the stage counts, capped by
-    their buffers: the candidates entering RNet are counted before the
-    cross-scale NMS, an upper bound) and per kernel (bytes, operations)
-    lists: K1 + K2 for every batch of the window, K3 and K4 for the
-    launches of the checked pass, from the inputs that the reference's
-    stand-ins saw (a traced run checks the first pass, so these are the
-    window's first launches)."""
-    cfg = run.config
-    d = cfg["detector"]
+    """The window's model FLOPs and the kernels' work, for the readers
+    (the detector's module's ``work``): ``model_flops`` and per kernel
+    (bytes, operations) lists; the launches of hand-written kernels whose
+    work depends on the data are counted from the checked pass's inputs to
+    the reference's stand-ins (a traced run checks the first pass, so
+    these are the window's first launches)."""
     ref = run.state["reference"]
     dev = next(ref.parameters()).device
     h, w = run.state["frame_shape"][:2]
     frame = torch.zeros((1, h, w, 3), dtype=torch.uint8, device=dev)
-    frames = run.counts["frames"]
-    if d["model"] == "rcnn":
-        per_frame = flops.forward_ops(ref, lambda: models.reference_detect(
-            cfg, ref, [frame[0].cpu().numpy()], 1))
-        run.work["model_flops"] = per_frame * frames
-    else:
-        from ..reference import mtcnn as M
-
-        scales, sizes = M.scale_pyramid(h, w, d["min_face_size"])
-        pnet = sum(flops.forward_ops(ref.pnet, lambda s=s: ref.pnet(
-            torch.zeros(1, 3, s[0], s[1], device=dev))) for s in sizes)
-        rnet = flops.forward_ops(ref.rnet, lambda: ref.rnet(torch.zeros(1, 3, 24, 24, device=dev)))
-        onet = flops.forward_ops(ref.onet, lambda: ref.onet(torch.zeros(1, 3, 48, 48, device=dev)))
-        caps = M.Caps()
-        n2 = n3 = 0
-        for c in run.state["stage_counts"]:
-            n2 += int(np.minimum(c["cross_in"], caps.stage2).sum())
-            n3 += int(np.minimum(c["stage2"], caps.stage3).sum())
-        run.work["model_flops"] = pnet * frames + rnet * n2 + onet * n3
-        b = run.traffic["batch_size"]
-        run.work["pnet"] = [flops.pnet_work(s, b, h, w) for s in sizes] * run.counts["batches"]
-    calls = run.state["kernel_calls"]
-    if d["model"] == "mtcnn":
-        run.work["pool_crops"] = [flops.crops_work(slots, size, *bhw) for bhw, slots, size in calls]
-    else:
-        run.work["roi_align"] = [flops.roi_work(boxes, valid, hw, c, esize)
-                                 for hw, c, esize, boxes, valid in calls]
+    models.detector(run.config).work(run, ref, frame)
 
 
 def close(run):

@@ -8,20 +8,17 @@ import contextlib
 import numpy as np
 import torch
 
-from . import seeding
+from . import registry, seeding
+
+
+def detector(cfg):
+    """The module of the configuration's detector, ``detectors/<model>.py``
+    (``registry.detector``)."""
+    return registry.detector(cfg["detector"]["model"])
 
 
 def reference_detector(cfg):
-    d = cfg["detector"]
-    if d["model"] == "rcnn":
-        from .reference.rcnn import AnimeFRCNN
-
-        return AnimeFRCNN(d.get("num_classes", 1))
-    if d["model"] == "mtcnn":
-        from .reference.mtcnn import MTCNN
-
-        return MTCNN()
-    raise ValueError("no reference for detector %r" % d["model"])
+    return detector(cfg).reference(cfg)
 
 
 def reference_encoder(cfg):
@@ -38,12 +35,12 @@ def reference_encoder(cfg):
 
 
 def detector_state(cfg, seed, device, frames):
-    """The detector's state from ``seed``, its face logits calibrated on
-    ``frames`` (``calibrate_heads``), on the host; and the calibration's
-    values per layer."""
+    """The detector's state from ``seed``, calibrated on ``frames`` by its
+    module (``calibrate_heads`` for the R-CNN and MTCNN), on the host; and
+    the calibration's values per layer."""
     ref = reference_detector(cfg).to(device).eval()
     seeding.seed_module_(ref, seed)
-    calibration = calibrate_heads(cfg, ref, frames)
+    calibration = detector(cfg).calibrate(cfg, ref, frames)
     return seeding.host_state(ref), calibration
 
 
@@ -193,16 +190,7 @@ def encoder_input(cfg, crops_u8, device):
 
 def program_detector(cfg, state, device):
     """The program's detector wrapper on ``device``, holding ``state``."""
-    from videotofaces_tpu_torch.models import wrappers as W
-
-    d = cfg["detector"]
-    if d["model"] == "rcnn":
-        det = W.FrcnnDetector(device, resize_spec=tuple(d["resize_spec"]),
-                              proposal_cap=d["proposal_cap"], out_top=d["out_top"])
-    elif d["model"] == "mtcnn":
-        det = W.MtcnnDetector(device, min_face_size=d["min_face_size"])
-    else:
-        raise ValueError("unknown detector %r" % d["model"])
+    det = detector(cfg).program(cfg, device)
     seeding.load_state_(det.model, state)
     return det
 
@@ -228,37 +216,25 @@ def program_encoder(cfg, state, device):
 def kernel_inputs(cfg):
     """While open, the reference's stand-ins for the program's hand-written
     kernels that the configuration's detector launches keep, per call,
-    the inputs that the kernel's work depends on (host copies): K3
-    ``pool_crops`` ((b, h, w), slot table, crop size), K4
-    ``roi_align_fpn`` (each level's (h, w), channels, bytes per element,
-    boxes, valid). Yields the list of calls."""
+    the inputs that the kernel's work depends on (host copies; the
+    detector's module names its stand-ins and what each keeps). Yields the
+    list of calls."""
     calls = []
-    if cfg["detector"]["model"] == "mtcnn":
-        from .reference import mtcnn as module
-
-        name = "pool_crops"
-
-        def keep(frames, slots, size):
-            return tuple(frames.shape[:3]), slots.cpu().numpy(), size
-    else:
-        from .reference import rcnn as module
-
-        name = "roi_align_fpn"
-
-        def keep(fmaps, boxes, valid, *rest):
-            return ([tuple(f.shape[1:3]) for f in fmaps], fmaps[0].shape[-1],
-                    fmaps[0].element_size(), boxes.cpu(), valid.cpu())
-    fn = getattr(module, name)
-
-    def recording(*args):
-        calls.append(keep(*args))
-        return fn(*args)
-
-    setattr(module, name, recording)
+    patched = []
     try:
+        for module, name, keep in detector(cfg).kernel_inputs(cfg):
+            fn = getattr(module, name)
+
+            def recording(*args, fn=fn, keep=keep):
+                calls.append(keep(*args))
+                return fn(*args)
+
+            setattr(module, name, recording)
+            patched.append((module, name, fn))
         yield calls
     finally:
-        setattr(module, name, fn)
+        for module, name, fn in reversed(patched):
+            setattr(module, name, fn)
 
 
 def reference_detect(cfg, model, frames, batch=4):
@@ -266,36 +242,26 @@ def reference_detect(cfg, model, frames, batch=4):
     ``batch`` (BGR uint8, one size; a short last block padded with its
     last frame, as the program pads its batches), in float32 on the
     model's device."""
-    d = cfg["detector"]
-    dev = next(model.parameters()).device
-    out = []
-    h, w = frames[0].shape[:2]
-    if d["model"] == "rcnn":
-        from .reference import rcnn as R
-        from .reference.anchors import get_priors
+    return detector(cfg).detect(cfg, model, frames, batch)
 
-        nh, nw = R.resized_shape(h, w, *d["resize_spec"])
-        canvas = R.canvas_shape(nh, nw)
-        priors = [torch.from_numpy(p).to(dev) for p in
-                  get_priors(canvas, R.frcnn_bases(), loc="corner", concat=False)]
+
+def blocks(model, frames, batch):
+    """(x, n) per block of ``batch`` frames: uint8 [batch, h, w, 3] on the
+    model's device, a short last block padded with its last frame; n the
+    block's own frames."""
+    dev = next(model.parameters()).device
     for s in range(0, len(frames), batch):
         block = list(frames[s:s + batch])
         n = len(block)
         block += block[-1:] * (batch - n)
-        x = torch.from_numpy(np.stack(block)).to(dev)
-        with torch.no_grad():
-            if d["model"] == "rcnn":
-                boxes, scores, _, valid = R.full_forward(
-                    model, x, (nh, nw), canvas, priors, out_top=d["out_top"],
-                    proposal_cap=d["proposal_cap"])[:4]
-            else:
-                from .reference import mtcnn as M
+        yield torch.from_numpy(np.stack(block)).to(dev), n
 
-                boxes, scores, _, valid, _ = M.full_forward(model, x.contiguous(),
-                                                            minsize=d["min_face_size"])
-        boxes, scores, valid = boxes.cpu().numpy(), scores.cpu().numpy(), valid.cpu().numpy()
-        out += [(boxes[i][valid[i]], scores[i][valid[i]]) for i in range(n)]
-    return out
+
+def valid_rows(boxes, scores, valid, n):
+    """The first ``n`` images' (boxes, scores) of a block's outputs, their
+    valid rows, numpy."""
+    boxes, scores, valid = boxes.cpu().numpy(), scores.cpu().numpy(), valid.cpu().numpy()
+    return [(boxes[i][valid[i]], scores[i][valid[i]]) for i in range(n)]
 
 
 def reference_embed(cfg, model, crops, batch=64):

@@ -1,7 +1,8 @@
 """Tiny CPU runs of the harness for its tests: every cell's mix and
-configuration shrunk (frame and crop sizes, counts, the R-CNN's resize,
-MTCNN's smallest face) so that a run takes seconds on the CPU, with the
-card check of ``run.py`` skipped (``harness.execute(device="cpu")``)."""
+configuration shrunk (frame and crop sizes, counts, and the detector's
+sizes that its module gives as ``TINY``: the R-CNN's resize, MTCNN's
+smallest face) so that a run takes seconds on the CPU, with the card check
+of ``run.py`` skipped (``harness.execute(device="cpu")``)."""
 
 import contextlib
 import copy
@@ -9,7 +10,7 @@ import io
 import json
 import time
 
-from portbench import harness, registry
+from portbench import harness, models, registry
 
 
 # cells whose drivers are built and tested but not yet in BENCHMARK.json (PERF.md)
@@ -39,10 +40,7 @@ CELLS = [c["name"] for c in benchmark()["workloads"]]
 def shrink(cfg, tr):
     cfg, tr = copy.deepcopy(cfg), copy.deepcopy(tr)
     d = cfg["detector"]
-    if d["model"] == "rcnn":
-        d.update(resize_spec=[96, 160], proposal_cap=64, out_top=16)
-    else:
-        d.update(min_face_size=24)
+    d.update(models.detector(cfg).TINY)
     for spec in d.get("calibrate", []):
         spec["per_frame"] = max(1, spec["per_frame"] // 20)
         if "kept_per_frame" in spec:
