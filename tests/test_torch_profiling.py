@@ -18,7 +18,7 @@ import torch
 
 from videotofaces_tpu_torch import specs
 from videotofaces_tpu_torch.models import mtcnn as TM
-from videotofaces_tpu_torch.models.wrappers import FrcnnDetector, MtcnnDetector
+from videotofaces_tpu_torch.models.wrappers import FrcnnDetector, MtcnnDetector, YoloDetector
 from videotofaces_tpu_torch.pipeline.detection import process_video
 from videotofaces_tpu_torch.utils import profiling as P
 
@@ -28,12 +28,17 @@ PIPELINE = {"video:open", "video:close", "writer:join", "decode:frames", "decode
             "decode:wait", "detect:submit", "detect:collect", "host:postprocess",
             "detect:h2d", "detect:d2h", "detect:wait", "nms:fixpoint", "host:sync"}
 STAGES = {"mtcnn": {"mtcnn:stage1", "mtcnn:stage2", "mtcnn:stage3"},
-          "rcnn": {"rcnn:body", "rcnn:rpn", "rcnn:roi"}}
+          "rcnn": {"rcnn:body", "rcnn:rpn", "rcnn:roi"},
+          "yolo": {"yolo:body", "yolo:select", "yolo:nms"}}
+# the counters a detector records in ``collect``, once its batch has landed
+LANDED = {"mtcnn": set(), "rcnn": set(), "yolo": {"yolo:candidates"}}
 
 
 def _detector(kind):
     if kind == "mtcnn":
         return MtcnnDetector("cpu", min_face_size=12, batch_size=2)
+    if kind == "yolo":
+        return YoloDetector("cpu", batch_size=2, max_side=96)
     return FrcnnDetector("cpu", batch_size=2, resize_spec=(64, 96), proposal_cap=64,
                          out_top=16)
 
@@ -162,7 +167,7 @@ def test_trace_names_the_spans_on_its_timeline(tmp_path):
     assert P._traces == 0 and P.span("a") is P.span("b")
 
 
-@pytest.mark.parametrize("kind", ["mtcnn", "rcnn"])
+@pytest.mark.parametrize("kind", ["mtcnn", "rcnn", "yolo"])
 def test_process_video_records_every_span(tmp_path, monkeypatch, kind):
     """One clip through a CPU detector: every span and counter of the
     pipeline and the detector lands in the recorder, under its parent; the
@@ -185,7 +190,8 @@ def test_process_video_records_every_span(tmp_path, monkeypatch, kind):
     monkeypatch.setattr(TM, "nms_keep_mask_bucketed", counted_bucketed)
     timer = _run_clip(tmp_path, _detector(kind))
     names = set(timer.calls)
-    assert PIPELINE | STAGES[kind] <= names, (PIPELINE | STAGES[kind]) - names
+    want = PIPELINE | STAGES[kind] | LANDED[kind]
+    assert want <= names, want - names
     assert timer.calls["host:sync"] == timer.items["host:sync"] == \
         checks["equal"] + checks["bucket"]
     assert checks["equal"] >= timer.calls["nms:fixpoint"] > 0
@@ -195,8 +201,8 @@ def test_process_video_records_every_span(tmp_path, monkeypatch, kind):
     for k, (name, _, _, _) in enumerate(iv):
         if name in STAGES[kind] or name in ("detect:h2d", "detect:d2h"):
             assert parent[k] == "detect:submit", (name, parent[k])
-        elif name == "detect:wait":
-            assert parent[k] == "detect:collect"
+        elif name == "detect:wait" or name in LANDED[kind]:
+            assert parent[k] == "detect:collect", (name, parent[k])
         elif name == "nms:fixpoint":
             assert parent[k] in STAGES[kind], parent[k]
         elif name == "host:sync":
@@ -207,7 +213,7 @@ def test_process_video_records_every_span(tmp_path, monkeypatch, kind):
         timer.total[n] for n in STAGES[kind] | {"detect:h2d", "detect:d2h"})
 
 
-@pytest.mark.parametrize("kind", ["mtcnn", "rcnn"])
+@pytest.mark.parametrize("kind", ["mtcnn", "rcnn", "yolo"])
 def test_detections_are_the_same_with_a_recorder_bound(kind):
     det = _detector(kind)
     rng = np.random.default_rng(3)
@@ -279,7 +285,7 @@ def test_decode_counts_the_frames_grabbed(tmp_path, monkeypatch, workers):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["mtcnn", "rcnn"])
+@pytest.mark.parametrize("kind", ["mtcnn", "rcnn", "yolo"])
 def test_every_sync_of_a_submit_is_a_host_sync_span(kind):
     """Under ``torch.cuda.set_sync_debug_mode("warn")``, each call of one
     ``submit`` that blocks the host on the card warns; each warning falls
@@ -303,8 +309,9 @@ def test_every_sync_of_a_submit_is_a_host_sync_span(kind):
 
             return _Ctx()
 
-    det = MtcnnDetector("cuda", min_face_size=5, batch_size=2) if kind == "mtcnn" else \
-        FrcnnDetector("cuda", batch_size=2)
+    det = {"mtcnn": lambda: MtcnnDetector("cuda", min_face_size=5, batch_size=2),
+           "rcnn": lambda: FrcnnDetector("cuda", batch_size=2),
+           "yolo": lambda: YoloDetector("cuda", batch_size=2)}[kind]()
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 255, (1080, 1920, 3), dtype=np.uint8) for _ in range(2)]
     det.collect(det.submit(frames))              # build, warm up, fill the caches

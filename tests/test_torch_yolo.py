@@ -337,29 +337,38 @@ def test_detector_matches_jax(params, host_resize):
 
 def test_collect_warns_per_counter(capsys):
     """``_BoxDetectorBase.collect`` takes YOLO's one counter or the Faster
-    R-CNN's three, and each set counter prints its own detector's warning."""
+    R-CNN's three, and each set counter prints its own detector's warning;
+    YOLO's per-image tally after its counter (the candidates entering NMS)
+    is recorded as one ``yolo:candidates`` counter, summed over the batch's
+    real images."""
     from types import SimpleNamespace
 
     from videotofaces_tpu_torch.models.wrappers import FrcnnDetector
+    from videotofaces_tpu_torch.utils import profiling
 
     def handle(*counters):
-        out = (torch.zeros((2, 3, 4)), torch.ones((2, 3)),
-               torch.zeros((2, 3), dtype=torch.int32),
-               torch.tensor([[True, True, False], [True, False, False]]))
+        out = (torch.zeros((3, 3, 4)), torch.ones((3, 3)),
+               torch.zeros((3, 3), dtype=torch.int32),
+               torch.tensor([[True, True, False], [True, False, False], [True, True, True]]))
         return (out + tuple(torch.tensor(c, dtype=torch.int32) for c in counters), None), 2
 
-    for cls, counters, words in ((YoloDetector, ([0, 3],), ["YOLO candidate selection"]),
-                                 (FrcnnDetector, ([2, 0], [0, 1], [4, 0]),
+    for cls, counters, words in ((YoloDetector, ([0, 3, 0],), ["YOLO candidate selection"]),
+                                 (FrcnnDetector, ([2, 0, 0], [0, 1, 0], [4, 0, 0]),
                                   ["FasterRCNN RPN two-pass NMS", "FasterRCNN RoIAlign dropped",
                                    "FasterRCNN RoIAlign ran"])):
-        det = SimpleNamespace(_name=cls._name, _counter_warnings=cls._counter_warnings)
-        boxes, scores, classes = cls.collect(det, handle(*counters))
+        det = SimpleNamespace(_name=cls._name, _counter_warnings=cls._counter_warnings,
+                              _tallies=cls._tallies)
+        tallies = [[5, 7, 100]] * len(cls._tallies)     # the third image is padding
+        timer = profiling.StageTimer()
+        with profiling.recording(timer):
+            boxes, scores, classes = cls.collect(det, handle(*counters, *tallies))
         assert [len(b) for b in boxes] == [2, 1] and [len(s) for s in scores] == [2, 1]
+        assert {k: n for k, n in timer.items.items() if n} == {name: 12 for name in cls._tallies}
         lines = capsys.readouterr().out.splitlines()
         assert len(lines) == len(words)
         for line, word, c in zip(lines, words, counters):
             assert line.startswith("WARNING: " + word) and " %d " % max(c) in line
-        cls.collect(det, handle(*[[0, 0]] * len(counters)))
+        cls.collect(det, handle(*[[0, 0, 0]] * (len(counters) + len(tallies))))
         assert capsys.readouterr().out == ""
         with pytest.raises(ValueError):
-            cls.collect(det, handle(*[[0, 0]] * (len(counters) + 1)))
+            cls.collect(det, handle(*[[0, 0, 0]] * (len(counters) + len(tallies) + 1)))

@@ -33,7 +33,7 @@ import torch
 from .. import config
 from ..parallel.mesh import gather_rows, map_shards, pad_to_multiple, split_rows
 from ..utils import weights as W
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 
 def _resolve_checkpoint(checkpoint):
@@ -257,14 +257,19 @@ class MtcnnDetector(_Replicas):
 
 class _BoxDetectorBase(_Replicas):
     """Shared submit / collect for detectors whose forward returns (boxes,
-    scores, classes, valid, *counters): YOLO's one counter
+    scores, classes, valid, *counters, *tallies): YOLO's one counter
     (select_overflow) or Faster R-CNN's three (select_overflow,
     roi_dropped, roi_truncated) (models/wrappers.py:86-153 of the JAX
-    package). Subclasses provide ``_name``, ``_counter_warnings`` (one
-    "%s ... %d" text per counter, filled with the name and the batch max),
-    ``_resized_hw(h, w)`` and ``_forward(model, x_u8, h, w)``."""
+    package), then the per-image tallies that ``_tallies`` names (YOLO's
+    ``yolo:candidates``), each recorded by ``collect`` as a counter of the
+    calling thread's recorder, summed over the batch's real images, once
+    the batch has landed (no round trip of its own). Subclasses provide
+    ``_name``, ``_counter_warnings`` (one "%s ... %d" text per counter,
+    filled with the name and the batch max), ``_resized_hw(h, w)`` and
+    ``_forward(model, x_u8, h, w)``."""
 
     _counter_warnings = ()
+    _tallies = ()
 
     def _resized_hw(self, h, w):
         raise NotImplementedError
@@ -291,7 +296,10 @@ class _BoxDetectorBase(_Replicas):
         """Wait for a batch; returns per-image (boxes [n, 4], scores [n],
         classes [n]) numpy lists, and warns when a capacity counter is set."""
         out, n = handle
-        boxes, scores, classes, valid, *counters = (t.numpy() for t in _landed(*out))
+        boxes, scores, classes, valid, *rest = (t.numpy() for t in _landed(*out))
+        counters = rest[:len(rest) - len(self._tallies)]
+        for name, tally in zip(self._tallies, rest[len(counters):], strict=True):
+            count(name, int(tally[:n].sum()))
         for counter, text in zip(counters, self._counter_warnings, strict=True):
             worst = int(counter.max())
             if worst > 0:
@@ -327,6 +335,7 @@ class YoloDetector(_BoxDetectorBase):
     _name = "YOLO"
     _counter_warnings = ("%s candidate selection dropped up to %d candidate(s) per "
                          "image (batch max).",)
+    _tallies = ("yolo:candidates",)
 
     def __init__(self, device=None, checkpoint="yolov3_wider", max_side=608,
                  batch_size=None, params=None, mesh=None, host_resize=False, bf16=False,

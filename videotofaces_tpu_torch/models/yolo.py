@@ -22,6 +22,13 @@ Differences from the JAX package, by design:
 Maps are NCHW inside the modules; ``postprocess`` reorders the head maps to
 the JAX package's flat candidate order (level 32 -> 16 -> 8, row-major,
 anchor-minor), the order of ``flat_priors_and_strides``.
+
+``full_forward`` records three spans in the calling thread's recorder
+(utils/profiling.py): ``yolo:body`` (preprocess, backbone, neck, head),
+``yolo:select`` (sigmoid, threshold mask, stable sort) and ``yolo:nms``
+(decode, the class-grouped fixpoint, top ``out_topk``, rescale), and
+returns the count of valid candidates entering NMS per image, which the
+wrapper records as the ``yolo:candidates`` counter once the batch lands.
 """
 
 import numpy as np
@@ -33,6 +40,7 @@ from ..ops.anchors import get_priors
 from ..ops.boxes import decode_boxes
 from ..ops.nms import nms_keep_mask, take_rows, topk_by_score
 from ..ops.resize import bilinear_resize_matmul
+from ..utils.profiling import span, sync_span
 from ..utils.weights import yolo_from_jax
 from .layers import ConvUnit, init_uniform_fan_in_
 
@@ -214,13 +222,23 @@ def postprocess(maps, priors, strides, num_classes=1, conf_thr=0.005, score_thr=
                 iou_thr=0.45, pre_topk=1000, out_topk=100):
     """Fixed-capacity postprocessing of one batch of NCHW head maps
     (``priors`` [D, 4], ``strides`` [D, 1] tensors from
-    ``flat_priors_and_strides``): ``select_candidates``, decode, greedy NMS
-    per image grouped by class, top ``out_topk`` by kept score.
+    ``flat_priors_and_strides``): ``select_candidates``, then
+    ``nms_detections``.
 
     Returns (boxes [B, out_topk, 4] canvas coords, scores, classes (int32),
     valid, overflow [B] int32 — always 0: the selection is exact)."""
+    top_scores, idx, reg = select_candidates(maps, num_classes, conf_thr, score_thr, pre_topk)
+    return nms_detections(top_scores, idx, reg, priors, strides, num_classes, iou_thr,
+                          out_topk)
+
+
+def nms_detections(top_scores, idx, reg, priors, strides, num_classes=1, iou_thr=0.45,
+                   out_topk=100):
+    """``select_candidates``' outputs -> decode, greedy NMS per image
+    grouped by class, top ``out_topk`` by kept score: (boxes [B, out_topk,
+    4] canvas coords, scores, classes (int32), valid, overflow [B] int32,
+    always 0)."""
     nc = num_classes
-    top_scores, idx, reg = select_candidates(maps, nc, conf_thr, score_thr, pre_topk)
     out_topk = min(out_topk, top_scores.shape[1])
     loc = idx // nc
     class_id = (idx % nc).to(torch.int32)
@@ -263,7 +281,8 @@ def full_forward(model, frames_u8, resized_hw, canvas_hw, priors, strides,
     """uint8 BGR frames [B, H, W, 3] -> final detections in original-frame
     coordinates: (boxes [B, out_topk, 4], scores, classes, valid, overflow
     [B]) — the JAX package's five outputs (yolo.py:139-147: keep-ratio
-    resize to ``max_side``, /255, RGB, zero pad to the /32 canvas). ``model``
+    resize to ``max_side``, /255, RGB, zero pad to the /32 canvas) — and
+    candidates [B] int32, the valid slots that entered NMS. ``model``
     is a ``YOLOv3`` whose parameters are in ``compute_dtype`` (None =
     float32); ``orig_hw``: set when the frames were already resized on the
     host; ``priors`` / ``strides``: ``flat_priors_and_strides(canvas_hw)``
@@ -273,13 +292,21 @@ def full_forward(model, frames_u8, resized_hw, canvas_hw, priors, strides,
     else:
         h, w = orig_hw
     nh, nw = resized_hw
-    x = preprocess(frames_u8, resized_hw, canvas_hw, compute_dtype, orig_hw)
-    maps = [m.float() for m in model(x)]
-    boxes, scores, classes, valid, overflow = postprocess(
-        maps, priors, strides, model.num_classes, out_topk=out_topk)
-    scale = torch.tensor([w / nw, h / nh, w / nw, h / nh], dtype=torch.float32,
-                         device=boxes.device)
-    return boxes * scale, scores, classes, valid, overflow
+    nc = model.num_classes
+    with span("yolo:body"):
+        x = preprocess(frames_u8, resized_hw, canvas_hw, compute_dtype, orig_hw)
+        maps = [m.float() for m in model(x)]
+    with span("yolo:select"):
+        top_scores, idx, reg = select_candidates(maps, nc)
+        candidates = (top_scores > 0.0).sum(1, dtype=torch.int32)
+    with span("yolo:nms"):
+        boxes, scores, classes, valid, overflow = nms_detections(
+            top_scores, idx, reg, priors, strides, nc, out_topk=out_topk)
+        with sync_span(boxes.device):
+            scale = torch.tensor([w / nw, h / nh, w / nw, h / nh], dtype=torch.float32,
+                                 device=boxes.device)
+        boxes = boxes * scale
+    return boxes, scores, classes, valid, overflow, candidates
 
 
 def torch_spec(num_classes=1):
