@@ -25,7 +25,7 @@ from videotofaces_tpu_torch.utils import profiling as P
 # every span and counter the pipeline records into the bound recorder of
 # one clip, by detector (the stage spans are each model's own)
 PIPELINE = {"video:open", "video:close", "writer:join", "decode:frames", "decode:worker_us",
-            "decode:wait", "detect:submit", "detect:collect", "host:postprocess",
+            "decode:ahead", "decode:wait", "detect:submit", "detect:collect", "host:postprocess",
             "detect:h2d", "detect:d2h", "detect:wait", "nms:fixpoint", "host:sync"}
 STAGES = {"mtcnn": {"mtcnn:stage1", "mtcnn:stage2", "mtcnn:stage3"},
           "rcnn": {"rcnn:body", "rcnn:rpn", "rcnn:roi"},

@@ -10,15 +10,17 @@ Contract (reference detection.py:68-119):
   requesting it falls back to OpenCV with a note.
 
 New vs reference: ``PrefetchingFrameSource`` decodes batches in a background
-thread (double-buffered queue) so host decode overlaps device compute instead
-of serializing with it (reference loops decode->forward->write sequentially).
-Both sources keep a ``DecodeTally`` of their workers: the frames grabbed or
-read, and the time spent opening, seeking, decoding and cropping.
+thread (double-buffered) so host decode overlaps device compute instead of
+serializing with it (reference loops decode->forward->write sequentially);
+``ParallelFrameSource`` splits a clip among several such workers. Both hand
+batches over as they land (``take``) or in clip order (iteration), and keep
+a ``DecodeTally`` of their workers: the frames grabbed or read, and the time
+spent opening, seeking, decoding and cropping.
 """
 
-import queue
 import threading
 import time
+from collections import deque
 
 import cv2
 import numpy as np
@@ -149,68 +151,136 @@ class DecodeTally:
         return frames
 
 
-class PrefetchingFrameSource:
-    """Iterates (indices, frames, cropped) batches decoded ahead of time.
+class _SegmentSource:
+    """Batches decoded on worker threads: the clip's batch list is cut into
+    contiguous segments, one worker each, and every worker holds up to
+    ``depth`` decoded batches in a buffer of its own, under one condition.
 
-    ``video_area`` = (x1, y1, x2, y2) optional crop applied after decode
-    (detection.py:114-116). ``depth`` is the prefetch queue size (2 =
-    double buffering).
-    """
+    ``take`` hands a batch over as soon as it lands, tagged with its
+    position in the clip; ``__iter__`` yields the (indices, frames) batches
+    in clip order. ``ahead`` counts the batches taken while an earlier one
+    was still untaken. Subclasses provide ``_decode(j)``, which decodes
+    segment ``j`` through ``_read_segment``."""
 
-    _END = object()
-
-    def __init__(self, reader, frame_indices, step, batch_size, video_area=None, depth=2):
-        self.reader = reader
+    def __init__(self, frame_indices, step, batch_size, video_area, workers, depth):
         self.batches = [frame_indices[i: i + batch_size]
                         for i in range(0, len(frame_indices), batch_size)]
+        workers = max(1, min(workers, len(self.batches)))
+        seg = -(-len(self.batches) // workers)
+        self.segments = [self.batches[j * seg: (j + 1) * seg] for j in range(workers)]
+        self._starts = [min(j * seg, len(self.batches)) for j in range(workers)]
         self.step = step
         self.video_area = video_area
-        self.queue = queue.Queue(maxsize=depth)
         self.tally = DecodeTally()
-        self.error = None
-        self._stop = False
-        self.thread = threading.Thread(target=self._work, daemon=True)
-        self.thread.start()
+        self.ahead = 0
+        self.errors = [None] * workers
+        self._depth = depth
+        self._cv = threading.Condition()
+        self._held = [deque() for _ in range(workers)]   # landed, not taken
+        self._given = [0] * workers                      # taken, per segment
+        self._ended = [False] * workers
+        self._stop = False          # must exist before any worker starts
+        self.threads = [threading.Thread(target=self._work, args=(j,), daemon=True)
+                        for j in range(workers)]
+        for t in self.threads:
+            t.start()
 
-    def _work(self):
+    def _work(self, j):
         try:
-            for bi in self.batches:
-                if self._stop:
-                    break
-                frames = self.tally.read_batch(self.reader, bi, self.step, self.video_area)
-                self.queue.put((bi, frames))
+            self._decode(j)
         except Exception as e:  # surfaced on the consumer side
-            self.error = e
+            self.errors[j] = e
         finally:
-            self.queue.put(self._END)
+            with self._cv:
+                self._ended[j] = True
+                self._cv.notify_all()
+
+    def _read_segment(self, j, reader):
+        """Decode segment ``j`` with ``reader``, each batch into the worker's
+        buffer, waiting while it holds ``depth`` batches."""
+        for bi in self.segments[j]:
+            if self._stop:
+                return
+            frames = self.tally.read_batch(reader, bi, self.step, self.video_area)
+            with self._cv:
+                while len(self._held[j]) >= self._depth and not self._stop:
+                    self._cv.wait()
+                self._held[j].append((bi, frames))
+                self._cv.notify_all()
+
+    def _wait(self):
+        self._cv.wait()
+
+    def take(self, in_order=False):
+        """The landed batch with the earliest position in the clip, or, with
+        ``in_order``, the earliest batch not yet taken; waits until it
+        lands. Returns (position, indices, frames), None once every batch
+        has been taken, and raises a worker's error where that worker's
+        batches are needed and it ended without them."""
+        with self._cv:
+            while True:
+                owed = False
+                for j, held in enumerate(self._held):
+                    if held:
+                        # a worker's buffer holds its segment's batches in
+                        # order, so the first one found is the earliest
+                        self.ahead += owed
+                        bi, frames = held.popleft()
+                        pos = self._starts[j] + self._given[j]
+                        self._given[j] += 1
+                        self._cv.notify_all()
+                        return pos, bi, frames
+                    if self._given[j] < len(self.segments[j]):
+                        if self._ended[j]:
+                            raise self.errors[j] or RuntimeError(
+                                "decode worker %d stopped before its last batch" % j)
+                        owed = True
+                        if in_order:
+                            break
+                if not owed:
+                    return None
+                self._wait()
 
     def stop(self, timeout=10.0):
-        """Unblock and join the decode thread. MUST run before the reader is
-        closed when iteration ends early (consumer exception / Ctrl-C):
-        cv2.VideoCapture is not thread-safe against a concurrent release,
-        and a worker blocked on the bounded queue would otherwise leak.
-        Returns True when the thread exited (reader safe to close)."""
-        self._stop = True
+        """Unblock and join every worker. MUST run before a reader a worker
+        uses is closed when iteration ends early (consumer exception /
+        Ctrl-C): cv2.VideoCapture is not thread-safe against a concurrent
+        release, and a worker waiting on its full buffer would otherwise
+        leak. Returns True when every worker exited."""
+        with self._cv:
+            self._stop = True
+            for held in self._held:
+                held.clear()
+            self._cv.notify_all()
         deadline = time.monotonic() + timeout
-        while self.thread.is_alive() and time.monotonic() < deadline:
-            try:  # drain so a blocked put() returns and the flag is seen
-                self.queue.get_nowait()
-            except queue.Empty:
-                pass
-            self.thread.join(timeout=0.05)
-        return not self.thread.is_alive()
+        for t in self.threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        return not any(t.is_alive() for t in self.threads)
 
     def __iter__(self):
-        while True:
-            item = self.queue.get()
-            if item is self._END:
-                if self.error:
-                    raise self.error
-                return
-            yield item
+        while (item := self.take(in_order=True)) is not None:
+            yield item[1:]
 
     def __len__(self):
         return len(self.batches)
+
+
+class PrefetchingFrameSource(_SegmentSource):
+    """Iterates (indices, frames, cropped) batches decoded ahead of time by
+    one worker on ``reader``, from the clip's start (no seek): the one-reader
+    case, whose batches land in clip order.
+
+    ``video_area`` = (x1, y1, x2, y2) optional crop applied after decode
+    (detection.py:114-116). ``depth`` is the prefetch buffer's size (2 =
+    double buffering).
+    """
+
+    def __init__(self, reader, frame_indices, step, batch_size, video_area=None, depth=2):
+        self.reader = reader
+        super().__init__(frame_indices, step, batch_size, video_area, 1, depth)
+
+    def _decode(self, j):
+        self._read_segment(j, self.reader)
 
 
 def decode_workers_default():
@@ -225,97 +295,42 @@ def decode_workers_default():
     return max(1, min(4, (os.cpu_count() or 1) - 1))
 
 
-class ParallelFrameSource:
-    """Order-preserving parallel decode: the batch list is split into
-    ``workers`` contiguous segments, each decoded by its own reader thread
-    (own cv2/decord handle, seek to segment start, then the same seek-vs-grab
-    strategy); the consumer drains the segments in order, so downstream
-    semantics (frame order, prev-5 dedup window, filenames) are identical to
-    the single-reader path.
+class ParallelFrameSource(_SegmentSource):
+    """Parallel decode: the batch list is split into ``workers`` contiguous
+    segments, each decoded by its own reader thread (own cv2/decord handle,
+    seek to segment start, then the same seek-vs-grab strategy). ``take``
+    hands batches over as they land; iteration drains the segments in
+    order, so it yields the same (indices, frames) batches as
+    PrefetchingFrameSource.
 
     This is the "keep host decode from starving the device" lever (SURVEY §7):
     decode throughput scales with cores while the device pipeline is
-    unchanged. Yields the same (indices, frames) batches as
-    PrefetchingFrameSource.
+    unchanged.
     """
-
-    _END = object()
 
     def __init__(self, path, frame_indices, step, batch_size, video_area=None,
                  reader_kind="opencv", workers=None, depth_per_worker=4):
         # depth 4: enough to hide segment handoff; 16 would buffer ~800 MB of
         # raw 1080p frames PER WORKER at batch 8
-        workers = workers or decode_workers_default()
-        self.batches = [frame_indices[i: i + batch_size]
-                        for i in range(0, len(frame_indices), batch_size)]
-        workers = max(1, min(workers, len(self.batches)))
-        seg = -(-len(self.batches) // workers)
-        self.segments = [self.batches[j * seg: (j + 1) * seg] for j in range(workers)]
-        self.step = step
-        self.video_area = video_area
-        self.queues = [queue.Queue(maxsize=depth_per_worker) for _ in self.segments]
-        self.tally = DecodeTally()
-        self.errors = [None] * len(self.segments)
-        self._stop = False          # must exist before any worker starts
-        self.threads = []
-        for j, seg_batches in enumerate(self.segments):
-            t = threading.Thread(target=self._work, daemon=True,
-                                 args=(j, path, reader_kind, seg_batches))
-            t.start()
-            self.threads.append(t)
+        self.path = path
+        self.reader_kind = reader_kind
+        super().__init__(frame_indices, step, batch_size, video_area,
+                         workers or decode_workers_default(), depth_per_worker)
 
-    def _work(self, j, path, reader_kind, seg_batches):
-        q = self.queues[j]
-        reader = None
-        try:
-            if not seg_batches:
-                return
-            t0 = time.perf_counter_ns()
-            reader = open_reader(path, reader_kind)
+    def _decode(self, j):
+        seg_batches = self.segments[j]
+        if not seg_batches:
+            return
+        t0 = time.perf_counter_ns()
+        reader = open_reader(self.path, self.reader_kind)
+        try:  # close on error/stop paths too
             if not reader.is_open():
-                raise RuntimeError("could not open video: %s" % path)
+                raise RuntimeError("could not open video: %s" % self.path)
             if hasattr(reader, "seek_to") and self.step <= 50:
                 # sequential-grab strategy: start decoding at the segment head
                 # instead of replaying the whole prefix
                 reader.seek_to(seg_batches[0][0])
             self.tally.add(0, time.perf_counter_ns() - t0)
-            for bi in seg_batches:
-                if self._stop:
-                    break
-                q.put((bi, self.tally.read_batch(reader, bi, self.step, self.video_area)))
-        except Exception as e:
-            self.errors[j] = e
+            self._read_segment(j, reader)
         finally:
-            if reader is not None:  # close on error/stop paths too
-                reader.close()
-            q.put(self._END)
-
-    def stop(self, timeout=10.0):
-        """Unblock and join every worker (each owns its reader, closed in its
-        own finally); call when iteration ends early."""
-        self._stop = True
-        deadline = time.monotonic() + timeout
-        while time.monotonic() < deadline:
-            alive = [t for t in self.threads if t.is_alive()]
-            if not alive:
-                break
-            for q in self.queues:
-                try:
-                    q.get_nowait()
-                except queue.Empty:
-                    pass
-            alive[0].join(timeout=0.05)
-        return not any(t.is_alive() for t in self.threads)
-
-    def __iter__(self):
-        for j, q in enumerate(self.queues):
-            while True:
-                item = q.get()
-                if item is self._END:
-                    if self.errors[j]:
-                        raise self.errors[j]
-                    break
-                yield item
-
-    def __len__(self):
-        return len(self.batches)
+            reader.close()

@@ -9,9 +9,10 @@ the boxes, crop, name as ``[prefix][kk_]%06d_%u.jpg``, optionally resize,
 drop near-duplicates against the previous 5 kept faces, write to
 ``out_dir/faces``; after all files, run the all-pairs hash dedup.
 
-Decode is prefetched on a background thread, the detector runs batches on
-the card with results copied back asynchronously (``submit``/``collect``),
-and face writes go through an async writer pool. Stage wall-times go into a
+Decode is prefetched on background threads, the detector runs batches on
+the card as they land with results copied back asynchronously
+(``submit``/``collect``, collected in clip order), and face writes go
+through an async writer pool. Stage wall-times go into a
 StageTimer reported after each run, bound as the thread's recorder so that
 the layers below add their own spans and counters (utils/profiling.py); set
 V2F_PROFILE_DIR to also capture a ``torch.profiler`` trace.
@@ -19,7 +20,6 @@ V2F_PROFILE_DIR to also capture a ``torch.profiler`` trace.
 
 import os
 import os.path as osp
-from collections import deque
 
 import numpy as np
 
@@ -124,8 +124,10 @@ def process_video(path, model, sampling, criteria, layout, hash_thr, timer=None,
                   crops=None):
     """One video through the detector. Returns (face filenames, their hashes).
     Records into ``timer`` (a new ``StageTimer`` by default) the clip's
-    edges, ``video:open`` and ``video:close``, and the decode workers'
-    counters, ``decode:frames`` and ``decode:worker_us``."""
+    edges, ``video:open`` and ``video:close``, the decode workers'
+    counters, ``decode:frames`` and ``decode:worker_us``, and
+    ``decode:ahead``, the batches submitted before an earlier one of the
+    clip."""
     timer = timer if timer is not None else StageTimer()
     with recording(timer):
         with span("video:open"):
@@ -157,13 +159,17 @@ def process_video(path, model, sampling, criteria, layout, hash_thr, timer=None,
                     reader.close()
             count("decode:frames", source.tally.frames)
             count("decode:worker_us", source.tally.ns // 1000)
+            count("decode:ahead", source.ahead)
 
 
 def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=None,
                    crops=None):
-    """The detector loop over any (indices, frames) batch source, for a
-    model with ``submit``/``collect``. Returns (face filenames, their
-    hashes)."""
+    """The detector loop over a batch source with ``take`` (hostio/video.py:
+    (position, indices, frames) batches as they land, or the next in clip
+    order), for a model with ``submit``/``collect``. Batches are submitted
+    in the order they land and collected, post-processed and named in clip
+    order, so the results are those of an in-order source. Returns (face
+    filenames, their hashes)."""
     timer = timer if timer is not None else StageTimer()
     with recording(timer):
         if getattr(model, "batch_size", False) is None:
@@ -171,11 +177,11 @@ def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=No
 
         names, hashes = [], []
         pbar = tqdm(total=n_frames)
-        # In-flight queue depth: how many submitted batches ride ahead of the
+        # In-flight depth: how many submitted batches ride ahead of the
         # collect point, so their results' copies back to the host overlap later
         # batches. Host memory held peaks at depth+1 batches of decoded frames.
         depth = max(1, int(os.environ.get("V2F_PIPELINE_DEPTH", "8")))
-        inflight = deque()  # (handle, frames, indices) awaiting collect
+        inflight = {}  # clip position -> (handle, frames, indices) awaiting collect
         writer = AsyncImageWriter()
 
         def finish(inflight):
@@ -191,20 +197,25 @@ def process_stream(source, n_frames, model, criteria, layout, hash_thr, timer=No
             return new_hashes
 
         try:
-            it = iter(source)
+            nxt = 0  # the clip position collected next
             while True:
+                # submit the earliest in clip order of the landed batches; at
+                # the depth bound only the next batch to collect makes room
+                in_order = len(inflight) >= depth and nxt not in inflight
                 with timer.stage("decode:wait"):
-                    nxt = next(it, None)
-                if nxt is None:
+                    item = source.take(in_order)
+                if item is None:
                     break
-                bi, frames = nxt
+                pos, bi, frames = item
                 with timer.stage("detect:submit", items=len(bi)):
                     handle = model.submit(frames)
-                inflight.append((handle, frames, bi))
+                inflight[pos] = (handle, frames, bi)
                 if len(inflight) > depth:
-                    hashes = finish(inflight.popleft())
+                    hashes = finish(inflight.pop(nxt))
+                    nxt += 1
             while inflight:
-                hashes = finish(inflight.popleft())
+                hashes = finish(inflight.pop(nxt))
+                nxt += 1
         finally:
             with timer.stage("writer:join"):   # the last crops' JPEG writes
                 writer.close()
